@@ -21,6 +21,20 @@ one line; any failure raises, and the exit code is then non-zero.
    cognitive_radio_network_tpu_torch sense`` at 256 cycles per dispatch.
 6. times: median of 3 for the kernel and the plain version at C=4096 and
    C=256, with CUDA events.
+7. extract, kernel vs plain: ``extract_windows`` against
+   ``extract_windows_plain`` (``torch.equal``) on the OFDM link's block of
+   N=1,265,664 samples at K=256 windows of 4864 (frames) and 160 (timing
+   refinement) samples, with clipped offsets; at N < wlen; at an odd wlen
+   and unaligned offsets.
+8. the OFDM link at full size: 256 default-config frames (qam4/crc32/h128,
+   256-byte payloads, 80-sample gaps) assembled on the card into one block
+   and decoded by one ``rx_block_fn(k=256)`` call: 256/256 frames intact,
+   the extract kernel launched, and the same result as the CPU run of the
+   plain path; then ``receive_block`` on two 16-frame bursts as ``assemble``
+   returns them on the card (qam16/none as complex64; v27/v27 with 64-byte
+   payloads as (N, 2) planes).
+9. times: median of 3 for the extract kernel and its plain version at both
+   link shapes, and for one ``rx_block_fn(k=256)`` call (MS/s, frames/s).
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -39,8 +53,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "cognitive_radio_network_tpu_torch/csrc/fused_sense_ct.cu"
 KERNEL_REPLACES = "cognitive_radio_network_tpu/ops/fused_sense_ct.py:51"
+EXTRACT_SOURCE = "cognitive_radio_network_tpu_torch/csrc/extract_windows.cu"
+EXTRACT_REPLACES = "cognitive_radio_network_tpu/ops/extract.py:46"
 CYCLES = 4096  # cycles per dispatch of the reference's bench (bench.py:132)
 CLI_CYCLES = 256  # the sense CLI's default cycles per dispatch
+LINK_FRAMES = 256  # frames per rx block of the reference's gate (tests/tpu_gates.py:137)
+LINK_GAP = 80  # samples between frames (tests/tpu_gates.py:138)
+LINK_PAYLOAD = 256  # reference packet size (include/crts.hpp:192-194)
 
 
 def phase(name: str, msg: str) -> None:
@@ -69,6 +88,174 @@ def time_ms(fn, inputs, trials: int = 3, reps: int = 10) -> list[float]:
     return times
 
 
+def link_phases(dev, smi: str) -> dict:
+    """Phases 7-9: the extract kernel against its plain version, the OFDM link
+    at full size, and their times.  Returns the kernel's entry of the kernels
+    line."""
+    import numpy as np
+    import torch
+
+    from cognitive_radio_network_tpu_torch.ops.extract import extract_windows, extract_windows_plain
+    from cognitive_radio_network_tpu_torch.ops.fused_sense_ct import fused_sense_ct
+    from cognitive_radio_network_tpu_torch.phy import OFDMFrameConfig, OFDMFrameGen, OFDMFrameSync
+
+    cfg = OFDMFrameConfig()  # ECR defaults: 32 subcarriers, cp 16, qam4/crc32/h128/none
+    gen = OFDMFrameGen(cfg, LINK_PAYLOAD)
+    flen = gen.frame_len
+    n_link = LINK_FRAMES * (flen + LINK_GAP)
+
+    # 7. extract, kernel vs plain on the card
+    g = torch.Generator(device=dev).manual_seed(11)
+    rr = torch.randn(n_link, generator=g, device=dev)
+    ri = torch.randn(n_link, generator=g, device=dev)
+
+    def offsets(k: int, n: int, wlen: int, odd: bool = False):
+        hi = max(n - wlen, 0)
+        if odd:
+            o = 2 * torch.randint(0, hi // 2, (k,), generator=g, device=dev) + 1
+        else:
+            o = torch.randint(0, hi + 1, (k,), generator=g, device=dev)
+        o[:3] = torch.tensor([-7, n - 3, n + 100], device=dev)  # clipped to [0, n - wlen]
+        return o
+
+    cases = [
+        (f"N={n_link} K=256 wlen=4864", rr, ri, offsets(256, n_link, 4864), 4864),
+        (f"N={n_link} K=256 wlen=160", rr, ri, offsets(256, n_link, 160), 160),
+        ("N=100 < wlen=160 K=4", rr[:100], ri[:100],
+         torch.tensor([0, 5, -3, 200], device=dev), 160),
+        (f"N={n_link} K=64 odd wlen=333, odd offsets", rr, ri,
+         offsets(64, n_link, 333, odd=True), 333),
+    ]
+    max_abs_err = 0.0
+    for label, a, b, o, wlen in cases:
+        got = extract_windows(a, b, o, wlen)
+        want = extract_windows_plain(a, b, o, wlen)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"extract kernel differs from the plain version at {label}")
+        err = max((got[i] - want[i]).abs().max().item() for i in (0, 1))
+        max_abs_err = max(max_abs_err, err)
+        phase("extract-vs-plain", f"{label}: torch.equal on both planes (max abs err {err:.1e})")
+
+    # 8. the OFDM link at full size (port of tests/tpu_gates.py::gate_ofdm_decode)
+    rng = np.random.default_rng(0)
+    hdrs = rng.integers(0, 256, (LINK_FRAMES, 8)).astype(np.uint8)
+    pays = rng.integers(0, 256, (LINK_FRAMES, LINK_PAYLOAD)).astype(np.uint8)
+    t0 = time.perf_counter()
+    frames = gen.assemble(hdrs, pays, as_planes=True, device=dev)  # (F, flen, 2)
+    gap = torch.zeros((LINK_FRAMES, LINK_GAP, 2), device=dev)
+    block = torch.cat([frames, gap], dim=1).reshape(-1, 2)
+    lr, li = block[:, 0].contiguous(), block[:, 1].contiguous()
+    torch.cuda.synchronize()
+    asm_s = time.perf_counter() - t0
+    torch.testing.assert_close(
+        frames[:4].cpu(), gen.assemble(hdrs[:4], pays[:4], as_planes=True), rtol=0, atol=1e-5
+    )
+    sync = OFDMFrameSync(cfg, LINK_PAYLOAD, device=dev)
+    rxfn = sync.rx_block_fn(k=LINK_FRAMES)
+    nvalid = torch.tensor(n_link, device=dev)
+    torch.cuda.synchronize()
+    fused_sense_ct.launches = extract_windows.launches = 0
+    t0 = time.perf_counter()
+    bests, peaks, cfos, out, ok = rxfn(lr, li, nvalid)
+    torch.cuda.synchronize()
+    rx_s = time.perf_counter() - t0
+    launches = extract_windows.launches
+    if launches < 2:
+        raise AssertionError(f"rx_block_fn launched the extract kernel {launches} times, not >= 2")
+    n_ok = int(ok.sum())
+    order = torch.argsort(bests).cpu()
+    want_offs = np.arange(LINK_FRAMES) * (flen + LINK_GAP)
+    if n_ok != LINK_FRAMES or not np.array_equal(bests.cpu()[order].numpy(), want_offs):
+        raise AssertionError(f"{n_ok}/{LINK_FRAMES} frames ok; offsets differ from the burst's")
+    for key, sent in (("headers", hdrs), ("payloads", pays)):
+        if not np.array_equal(out[key].cpu()[order].numpy(), sent):
+            raise AssertionError(f"decoded {key} differ from what was sent")
+    if not bool(out["pay_ok"].all()):
+        raise AssertionError("a payload CRC failed")
+    for key in ("evm_db", "rssi_db", "cfo"):
+        if not bool(torch.isfinite(out[key]).all()):
+            raise AssertionError(f"{key} has non-finite values")
+    # the same block through the plain path on the CPU
+    cb, _, cc, cout, cok = sync.rx_block_fn(k=LINK_FRAMES)(lr.cpu(), li.cpu(), n_link)
+    corder = torch.argsort(cb)
+    if not (torch.equal(cb[corder], bests.cpu()[order]) and bool(cok.all())):
+        raise AssertionError("the CPU run of the plain path found other frames")
+    for key in ("headers", "payloads", "hdr_ok", "pay_ok"):
+        if not torch.equal(cout[key][corder], out[key].cpu()[order]):
+            raise AssertionError(f"{key} differ between the card and the CPU run")
+    cfo_err = (cc[corder] - cfos.cpu()[order]).abs().max().item()
+    rssi_err = (cout["rssi_db"][corder] - out["rssi_db"].cpu()[order]).abs().max().item()
+    if cfo_err > 1e-6 or rssi_err > 1e-3:
+        raise AssertionError(f"card vs CPU: cfo err {cfo_err:.2e}, rssi err {rssi_err:.2e} dB")
+    phase("link", f"{LINK_FRAMES} frames x {flen} samples + {LINK_GAP} gap = N {n_link} "
+          f"assembled on the card in {asm_s:.2f} s; one rx_block_fn(k={LINK_FRAMES}) call: "
+          f"{n_ok}/{LINK_FRAMES} ok, headers and payloads equal to those sent, in "
+          f"{rx_s * 1e3:.1f} ms host time (first call); extract launches {launches}; vs the "
+          f"CPU run: same frames, cfo max err {cfo_err:.1e} (bound 1e-6), rssi {rssi_err:.1e} dB "
+          f"(bound 1e-3); evm {out['evm_db'].max().item():.1f} dB at most")
+    # receive_block takes the block as assemble gives it: complex, or (N, 2) planes
+    for label, kw, payload_len, as_planes in (
+        ("qam16/none", {"mod_scheme": "qam16", "fec0": "none"}, LINK_PAYLOAD, False),
+        ("qam16 v27/v27", {"mod_scheme": "qam16", "fec0": "v27", "fec1": "v27"}, 64, True),
+    ):
+        c2 = OFDMFrameConfig(**kw)
+        g2 = OFDMFrameGen(c2, payload_len)
+        h2 = rng.integers(0, 256, (16, 8)).astype(np.uint8)
+        p2 = rng.integers(0, 256, (16, payload_len)).astype(np.uint8)
+        f2 = g2.assemble(h2, p2, as_planes=as_planes, device=dev)
+        lead = torch.zeros((16, 137, *f2.shape[2:]), dtype=f2.dtype, device=dev)
+        b2 = torch.cat([lead, f2], dim=1).reshape(-1, *f2.shape[2:])
+        before = extract_windows.launches
+        t0 = time.perf_counter()
+        got = OFDMFrameSync(c2, payload_len, device=dev).receive_block(b2, k=32)
+        rb_s = time.perf_counter() - t0
+        if extract_windows.launches < before + 2:
+            raise AssertionError(f"receive_block {label} did not launch the extract kernel")
+        offs = [f["offset"] for f in got]
+        if offs != [137 + i * (137 + g2.frame_len) for i in range(16)]:
+            raise AssertionError(f"receive_block {label}: frames at {offs}")
+        for f, h, p in zip(got, h2, p2):
+            if not (np.array_equal(f["header"], h) and np.array_equal(f["payload"], p)
+                    and f["stats"].payload_valid):
+                raise AssertionError(f"receive_block {label}: a frame did not decode intact")
+        form = "(N, 2) float32 planes" if as_planes else "complex64"
+        phase("link", f"receive_block {label}, {payload_len}-byte payloads, {form} block from "
+              f"assemble on the card: 16/16 frames intact in {rb_s:.2f} s host time (first call)")
+
+    # 9. times: in turns plain, kernel, kernel, plain
+    times = {}
+    for wlen in (4864, 160):
+        inputs = [(rr, ri, offsets(256, n_link, wlen), wlen)]
+        plain_1 = time_ms(extract_windows_plain, inputs)
+        kern_1 = time_ms(extract_windows, inputs)
+        kern_2 = time_ms(extract_windows, inputs)
+        plain_2 = time_ms(extract_windows_plain, inputs)
+        k_ms, p_ms = statistics.median(kern_1), statistics.median(plain_1)
+        times[wlen] = (k_ms, p_ms)
+        moved = 2 * 2 * 256 * wlen * 4  # both planes, read and written
+        gbs = moved / (k_ms * 1e-3) / 1e9
+        phase("time", f"extract K=256 wlen={wlen} on N={n_link}: kernel {k_ms:.4f} ms "
+              f"({gbs:.0f} GB/s moved, {gbs / 3350:.1%} of 3.35 TB/s), plain {p_ms:.4f} ms, "
+              f"median of 3; second turn kernel {statistics.median(kern_2):.4f}, plain "
+              f"{statistics.median(plain_2):.4f}; {smi}")
+    link_t = time_ms(rxfn, [(lr, li, nvalid)], reps=5)
+    link_ms = statistics.median(link_t)
+    phase("time", f"OFDM link rx_block_fn(k={LINK_FRAMES}) at N={n_link}: {link_ms:.4f} ms/call "
+          f"({n_link / link_ms / 1e3:.1f} MS/s, {LINK_FRAMES / link_ms * 1e3:.0f} frames/s), "
+          f"median of 3 runs of 5 calls (runs {', '.join(f'{t:.4f}' for t in link_t)}); {smi}")
+    return {
+        "name": "extract_windows",
+        "route": "cuda",
+        "source": EXTRACT_SOURCE,
+        "replaces": EXTRACT_REPLACES,
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": times[4864][0],
+        "plain_ms": times[4864][1],
+    }
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -90,6 +277,7 @@ def main() -> int:
         sense_classify_trace,
     )
     from cognitive_radio_network_tpu_torch.ops import _build
+    from cognitive_radio_network_tpu_torch.ops.extract import extract_windows
     from cognitive_radio_network_tpu_torch.ops.fused_sense_ct import (
         fused_sense_ct,
         fused_sense_ct_plain,
@@ -189,7 +377,7 @@ def main() -> int:
     )
     planar = tuple(scene[..., i].reshape(-1, n).contiguous() for i in (0, 1))
     torch.cuda.synchronize()
-    fused_sense_ct.launches = 0
+    fused_sense_ct.launches = extract_windows.launches = 0
     t0 = time.perf_counter()
     res, freqs = sense_classify_trace(planar, params, 833e6, cfg)
     torch.cuda.synchronize()
@@ -215,7 +403,8 @@ def main() -> int:
         raise AssertionError("tx trace breaks the 1->835, 2->833, 3->835 MHz policy")
     phase("main-path", f"{CYCLES} cycles ({CYCLES * cfg.samples_per_cycle / 1e6:.1f} MSamples) "
           f"in {main_s * 1e3:.1f} ms host time; kernel launches {launches}; decision == PU+1 on "
-          f"{hit:.4f}; tx trace follows policy (final {want[-1] / 1e6:.0f} MHz)")
+          f"{hit:.4f}; tx trace follows policy (final {want[-1] / 1e6:.0f} MHz); extract "
+          f"launches {extract_windows.launches}")
 
     # 5. the CLI at its default dispatch size
     work = ROOT / "build" / "chip_smoke"
@@ -269,6 +458,8 @@ def main() -> int:
               f"{statistics.median(plain_2):.4f}; {smi}")
         del inputs
 
+    del params
+    extract_entry = link_phases(dev, smi)
     kernels = [{
         "name": "fused_sense_ct",
         "route": "cuda",
@@ -278,7 +469,7 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": times[CYCLES][0],
         "plain_ms": times[CYCLES][1],
-    }]
+    }, extract_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

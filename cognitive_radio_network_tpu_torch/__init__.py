@@ -11,14 +11,17 @@ reference package, at run time.  Each kernel wrapper picks the kernel or its
 plain PyTorch version by the device of the tensor it is given
 (:mod:`.utils.device`).
 
-Ported so far (the sense->classify main path):
+Ported so far (the sense->classify main path and the fixed-config OFDM link):
 
 signal    IQ layouts, DFT spectra, band features, the 4-5-3 MLP, detector,
-          filter design
+          filter design, m-sequences
 ops       ``fused_sense_ct``: 512-point FFT -> |X| -> mean over buffers ->
-          band sums, squared (CUDA kernel + plain version)
+          band sums, squared; ``extract_windows``: K windows of two IQ
+          planes at dynamic offsets (CUDA kernels + plain versions)
 models    ``SenseConfig``, ``sense_classify``, ``sense_classify_trace``,
           ``make_sense_fn``
+phy       bits, CRC, FEC, modem, subcarrier allocations, ``OFDMFrameGen``,
+          ``OFDMFrameSync`` (detect, demod, decode, block receive)
 env       Markov/random PU traces, scene synthesis, channel impairments
 io        recorded-IQ captures and MLP checkpoints (same file formats)
 

@@ -4,7 +4,8 @@ The sources compile at first use into ``build/kernels/`` at the root of the
 checkout, under a name keyed by a hash of the sources and flags, so an edit
 rebuilds and an unchanged tree reuses the library.  The library has a plain
 C interface: no PyTorch headers, so a build takes seconds, not minutes.
-Pointers and the stream pass as ``c_void_p``, ints as ``c_int``; each entry
+Pointers and the stream pass as ``c_void_p``, ints as ``c_int`` (64-bit
+lengths as ``c_longlong``); each entry
 point returns ``cudaGetLastError()`` after its launch.
 
 Nothing here runs at import: the CPU-only test machines have no ``nvcc``.
@@ -36,10 +37,12 @@ NVCC_FLAGS = (
 )
 
 # entry point -> argtypes; restype is c_int (a cudaError_t) for all
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # xr, xi, is_bf16, tw, band, avg, feats, cycles, averaging, stream
     "crn_fused_sense_ct": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _P),
+    # rr, ri, offsets, out_r, out_i, n, k, wlen, stream
+    "crn_extract_windows": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
 }
 
 

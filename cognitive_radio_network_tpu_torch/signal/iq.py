@@ -26,19 +26,26 @@ def _tensor(x) -> torch.Tensor:
 
 def split_iq(x) -> tuple[torch.Tensor, torch.Tensor]:
     """Normalize complex (..., N), planes (..., N, 2), or a planar
-    ``(xr, xi)`` tuple to float32 (re, im), each (..., N)."""
+    ``(xr, xi)`` tuple to contiguous float32 (re, im), each (..., N).
+
+    The real and imaginary parts of a complex tensor, and the columns of
+    planes, are strided views; they are copied here, once, so the kernels
+    downstream get the contiguous planes they take."""
     if isinstance(x, (tuple, list)):
         xr, xi = x
-        return _tensor(xr).float(), _tensor(xi).float()
-    x = _tensor(x)
-    if x.is_complex():
-        return x.real.float(), x.imag.float()
-    if x.shape[-1] == 2:
-        return x[..., 0].float(), x[..., 1].float()
-    raise ValueError(
-        f"IQ input must be complex, (..., 2) planes, or an (xr, xi) tuple; "
-        f"got {x.dtype} {tuple(x.shape)}"
-    )
+        xr, xi = _tensor(xr), _tensor(xi)
+    else:
+        x = _tensor(x)
+        if x.is_complex():
+            xr, xi = x.real, x.imag
+        elif x.shape[-1] == 2:
+            xr, xi = x[..., 0], x[..., 1]
+        else:
+            raise ValueError(
+                f"IQ input must be complex, (..., 2) planes, or an (xr, xi) tuple; "
+                f"got {x.dtype} {tuple(x.shape)}"
+            )
+    return xr.float().contiguous(), xi.float().contiguous()
 
 
 def to_planar(x) -> tuple[torch.Tensor, torch.Tensor]:

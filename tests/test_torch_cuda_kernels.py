@@ -9,16 +9,20 @@ JAX, which a machine for the port need not have):
 
 Bounds are those of chip_smoke.py: avg rtol 1e-4, atol 1e-5 and feats rtol
 1e-4 for f32 input; feats rtol 2e-2 of the f32 result for bf16 input.
+``extract_windows`` is a copy: its kernel must equal the plain version bit
+for bit (``torch.equal``).
 """
 
 import pytest
 import torch
 
 from cognitive_radio_network_tpu_torch.models import SenseConfig, make_sense_fn
+from cognitive_radio_network_tpu_torch.ops.extract import extract_windows, extract_windows_plain
 from cognitive_radio_network_tpu_torch.ops.fused_sense_ct import (
     fused_sense_ct,
     fused_sense_ct_plain,
 )
+from cognitive_radio_network_tpu_torch.phy import OFDMFrameConfig, OFDMFrameGen, OFDMFrameSync
 from cognitive_radio_network_tpu_torch.signal.mlp import reference_weights
 
 pytestmark = [
@@ -87,3 +91,92 @@ def test_main_path_launches_kernel_and_matches_cpu():
     cpu = fn((xr.cpu(), xi.cpu()), reference_weights())
     assert torch.equal(res["decision"].cpu(), cpu["decision"])
     torch.testing.assert_close(res["features"].cpu(), cpu["features"], rtol=1e-4, atol=0.0)
+
+
+LINK_N = 1_265_664  # 256 default-config frames of 4864 samples with 80-sample gaps
+
+
+def _link_planes(n, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(n, generator=g, device="cuda") for _ in range(2))
+
+
+@pytest.mark.parametrize(
+    "n,k,wlen",
+    [(LINK_N, 256, 4864), (LINK_N, 256, 160), (LINK_N, 3, 333), (100, 4, 160), (5000, 1, 1)],
+)
+def test_extract_kernel_equals_plain(n, k, wlen):
+    rr, ri = _link_planes(n, seed=k)
+    g = torch.Generator(device="cuda").manual_seed(wlen)
+    offs = torch.randint(-50, n + 50, (k,), generator=g, device="cuda")
+    edge = torch.tensor([-7, n - 3, n + 100, 0, 1, n - wlen], device="cuda")
+    offs[: min(k, 6)] = edge[: min(k, 6)]
+    for o in (offs, offs.int()):
+        before = extract_windows.launches
+        got = extract_windows(rr, ri, o, wlen)
+        assert extract_windows.launches == before + 1
+        want = extract_windows_plain(rr, ri, o, wlen)
+        torch.cuda.synchronize()
+        assert got[0].shape == (k, wlen)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_extract_kernel_rejects_bad_input():
+    rr, ri = _link_planes(1000)
+    offs = torch.zeros(2, dtype=torch.int64, device="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        extract_windows(rr.double(), ri.double(), offs, 10)
+    with pytest.raises(TypeError, match="integers"):
+        extract_windows(rr, ri, offs.float(), 10)
+    with pytest.raises(ValueError, match="contiguous"):
+        extract_windows(rr[::2], ri[::2], offs, 10)
+    with pytest.raises(ValueError, match="one card"):
+        extract_windows(rr, ri, offs.cpu(), 10)
+    with pytest.raises(ValueError, match="expected planes"):
+        extract_windows(rr.reshape(10, 100), ri.reshape(10, 100), offs, 10)
+
+
+def test_link_on_card_launches_kernel_and_matches_cpu():
+    cfg, payload_len = OFDMFrameConfig(), 64
+    gen, sync = OFDMFrameGen(cfg, payload_len), OFDMFrameSync(cfg, payload_len)
+    rng = torch.Generator().manual_seed(5)
+    headers = torch.randint(0, 256, (4, 8), generator=rng, dtype=torch.uint8).numpy()
+    payloads = torch.randint(0, 256, (4, payload_len), generator=rng, dtype=torch.uint8).numpy()
+    frames = gen.assemble(headers, payloads, as_planes=True, device="cuda")
+    gap = torch.zeros((4, 80, 2), device="cuda")
+    block = torch.cat([frames, gap], dim=1).reshape(-1, 2)
+    rr, ri = block[:, 0].contiguous(), block[:, 1].contiguous()
+    before = extract_windows.launches
+    bests, peaks, cfos, out, ok = sync.rx_block_fn(k=4)(rr, ri, rr.shape[0])
+    assert extract_windows.launches == before + 2
+    order = torch.argsort(bests).cpu()
+    assert bool(ok.all())
+    assert (out["payloads"].cpu()[order].numpy() == payloads).all()
+    cpu = sync.rx_block_fn(k=4)(rr.cpu(), ri.cpu(), rr.shape[0])
+    assert torch.equal(cpu[0].sort().values, bests.cpu().sort().values)
+
+
+@pytest.mark.parametrize("form", ["complex", "planes", "planar-views"])
+def test_receive_block_on_card_takes_each_iq_form(form):
+    """receive_block straight from ``assemble(device="cuda")``: the complex
+    block, its (N, 2) planes and a tuple of their strided views all reach
+    the kernel and decode every frame."""
+    cfg, payload_len = OFDMFrameConfig(), 64
+    gen, sync = OFDMFrameGen(cfg, payload_len), OFDMFrameSync(cfg, payload_len, device="cuda")
+    rng = torch.Generator().manual_seed(6)
+    headers = torch.randint(0, 256, (3, 8), generator=rng, dtype=torch.uint8).numpy()
+    payloads = torch.randint(0, 256, (3, payload_len), generator=rng, dtype=torch.uint8).numpy()
+    iq = gen.assemble(headers, payloads, device="cuda")  # (3, frame_len) complex64
+    iq = torch.cat([iq, torch.zeros((3, 80), dtype=iq.dtype, device="cuda")], dim=1).reshape(-1)
+    block = {
+        "complex": iq,
+        "planes": torch.view_as_real(iq),
+        "planar-views": (torch.view_as_real(iq)[:, 0], torch.view_as_real(iq)[:, 1]),
+    }[form]
+    before = extract_windows.launches
+    frames = sync.receive_block(block, k=4)
+    assert extract_windows.launches == before + 2
+    assert [f["offset"] for f in frames] == [i * (gen.frame_len + 80) for i in range(3)]
+    for f, h, p in zip(frames, headers, payloads):
+        assert (f["header"] == h).all() and (f["payload"] == p).all()
+        assert f["stats"].payload_valid

@@ -28,7 +28,11 @@ def test_port_modules_load_without_jax():
         "import cognitive_radio_network_tpu_torch.__main__, "
         "cognitive_radio_network_tpu_torch.models, cognitive_radio_network_tpu_torch.env, "
         "cognitive_radio_network_tpu_torch.io, cognitive_radio_network_tpu_torch.ops, "
-        "cognitive_radio_network_tpu_torch.signal, cognitive_radio_network_tpu_torch.utils\n"
+        "cognitive_radio_network_tpu_torch.signal, cognitive_radio_network_tpu_torch.utils, "
+        "cognitive_radio_network_tpu_torch.phy, cognitive_radio_network_tpu_torch.ops.extract, "
+        "cognitive_radio_network_tpu_torch.phy.framesync, "
+        "cognitive_radio_network_tpu_torch.signal.msequence, "
+        "cognitive_radio_network_tpu_torch.profile_link\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cognitive_radio_network_tpu')]\n"
         "assert not bad, bad\n"

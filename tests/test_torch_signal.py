@@ -167,9 +167,11 @@ class TestFiltersAndIQ:
         np.testing.assert_array_equal(tiq.from_planes(planes), x)
         back = tiq.from_planes(torch.from_numpy(planes))
         np.testing.assert_array_equal(back.numpy(), x)
-        for form in (x, planes, (x.real, x.imag), torch.from_numpy(x)):
+        tx = torch.from_numpy(x)
+        for form in (x, planes, (x.real, x.imag), tx, torch.from_numpy(planes), (tx.real, tx.imag)):
             xr, xi = tiq.split_iq(form)
             np.testing.assert_array_equal(xr.numpy(), x.real)
             np.testing.assert_array_equal(xi.numpy(), x.imag)
+            assert xr.is_contiguous() and xi.is_contiguous()  # the kernels take contiguous planes
         with pytest.raises(ValueError, match="IQ input"):
             tiq.split_iq(torch.zeros(3, 4))
