@@ -35,9 +35,38 @@ one line; any failure raises, and the exit code is then non-zero.
    payloads as (N, 2) planes).
 9. times: median of 3 for the extract kernel and its plain version at both
    link shapes, and for one ``rx_block_fn(k=256)`` call (MS/s, frames/s).
+10. wideband, kernel vs plain: ``wideband_energy_fused`` against
+   ``wideband_energy_fused_plain`` (rtol 1e-5, atol 1e-7) at T=524,288
+   per-channel times (4096 sense cycles, 33.5 M wide samples) and at T=1,280
+   (10 cycles); with a non-zero ``initial_history`` at T=4,096; a stream cut
+   in two with the first half's last rows as the second half's history must
+   give the whole stream's bits; and against float64 numpy oracles at T=4,096
+   (rtol 2e-3, atol 1e-5).
+11. the wideband path at full width: a scene of 1e-3 noise plus unit tones at
+   a few channel centres, made on the card, through
+   ``make_wideband_fn(WidebandConfig())`` at T=524,288: the kernel launched,
+   outputs finite and of the right shape, ``occupied`` true on exactly the
+   active channels in every cycle after the first; then ``wideband_features``
+   and the one-device ``make_sharded_apply`` with a seeded 4-5-1 network on a
+   (4, T*64, 2) batch at T=65,536: one kernel launch per stream, and the
+   batch's energy held to the packed plain path (``use_fused=False``).
+12. dense-DFT sense, kernel vs plain: ``fused_band_features`` against
+   ``fused_band_features_plain`` and against ``fused_sense_ct``'s features
+   (rtol 1e-4) at C=4096 and C=5; then the function once on phase 4's scene,
+   its features through the MLP and the decision rule: decisions must track
+   the PU channel as the main path's do.
+13. times: median of 3, plain and kernel in turns, for the wideband kernel and
+   its plain version at T=524,288, for one ``make_wideband_fn`` call (CUDA
+   events back to back; host clock per synchronized call; device operations,
+   busy time and idle share from a profiler trace), for the batch of streams
+   through the kernel and through the packed path, and for the dense-DFT
+   kernel and its plain version at C=4096.
 
-The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with each kernel's launches on its
+path, error, times and bound (the least time the card could take: bytes moved
+over 3.35 TB/s or the float32 operations the function needs, with an FFT for
+a DFT, over 67 TFLOP/s, whichever is larger);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -60,6 +89,33 @@ CLI_CYCLES = 256  # the sense CLI's default cycles per dispatch
 LINK_FRAMES = 256  # frames per rx block of the reference's gate (tests/tpu_gates.py:137)
 LINK_GAP = 80  # samples between frames (tests/tpu_gates.py:138)
 LINK_PAYLOAD = 256  # reference packet size (include/crts.hpp:192-194)
+WIDE_SOURCE = "cognitive_radio_network_tpu_torch/csrc/fused_wideband.cu"
+WIDE_REPLACES = "cognitive_radio_network_tpu/ops/fused_wideband.py:91"
+DENSE_SOURCE = "cognitive_radio_network_tpu_torch/csrc/fused_sense.cu"
+DENSE_REPLACES = "cognitive_radio_network_tpu/ops/fused_sense.py:35"
+WIDE_T = 524_288  # per-channel times per dispatch of the reference's bench (bench.py:250-261)
+WIDE_ACTIVE = (3, 17, 40, 63)  # channels that carry a tone in the wide scene
+APPLY_BATCH, APPLY_T = 4, 65_536  # the batch of streams of the apply step
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate
+FP32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
+
+
+def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+    """The least time in ms the card could take: every input byte read once
+    and every output byte written once at the memory rate, or the float32
+    operations at the FP32 pipes' peak, whichever is larger."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0, right before a path is driven."""
+    from cognitive_radio_network_tpu_torch import ops
+
+    for fn in (ops.fused_sense_ct, ops.extract_windows, ops.wideband_energy_fused,
+               ops.fused_band_features):
+        fn.launches = 0
 
 
 def phase(name: str, msg: str) -> None:
@@ -96,7 +152,6 @@ def link_phases(dev, smi: str) -> dict:
     import torch
 
     from cognitive_radio_network_tpu_torch.ops.extract import extract_windows, extract_windows_plain
-    from cognitive_radio_network_tpu_torch.ops.fused_sense_ct import fused_sense_ct
     from cognitive_radio_network_tpu_torch.phy import OFDMFrameConfig, OFDMFrameGen, OFDMFrameSync
 
     cfg = OFDMFrameConfig()  # ECR defaults: 32 subcarriers, cp 16, qam4/crc32/h128/none
@@ -155,7 +210,7 @@ def link_phases(dev, smi: str) -> dict:
     rxfn = sync.rx_block_fn(k=LINK_FRAMES)
     nvalid = torch.tensor(n_link, device=dev)
     torch.cuda.synchronize()
-    fused_sense_ct.launches = extract_windows.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     bests, peaks, cfos, out, ok = rxfn(lr, li, nvalid)
     torch.cuda.synchronize()
@@ -244,6 +299,8 @@ def link_phases(dev, smi: str) -> dict:
     phase("time", f"OFDM link rx_block_fn(k={LINK_FRAMES}) at N={n_link}: {link_ms:.4f} ms/call "
           f"({n_link / link_ms / 1e3:.1f} MS/s, {LINK_FRAMES / link_ms * 1e3:.0f} frames/s), "
           f"median of 3 runs of 5 calls (runs {', '.join(f'{t:.4f}' for t in link_t)}); {smi}")
+    # a gather: the K windows read and written once, both planes, and the offsets
+    bound_ms, bound_by = bound(2 * 2 * 256 * 4864 * 4 + 256 * 8, 0)
     return {
         "name": "extract_windows",
         "route": "cuda",
@@ -253,7 +310,358 @@ def link_phases(dev, smi: str) -> dict:
         "max_abs_err": max_abs_err,
         "ms": times[4864][0],
         "plain_ms": times[4864][1],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call gathers clipped windows of two planes
     }
+
+
+def wideband_energy_f64(xr, xi, taps, block_len, hist_r=None, hist_i=None):
+    """float64 numpy oracle of the wideband energy math, independent of the
+    port: depthwise polyphase FIR (rows before the stream from the history's
+    8 phase rows, else zero) -> 64-point DFT -> per-cycle mean power."""
+    import numpy as np
+
+    p, m = taps.shape
+    t = xr.size // m
+    pre_r = np.zeros((p, m)) if hist_r is None else hist_r.reshape(p, m).astype(np.float64)
+    pre_i = np.zeros((p, m)) if hist_i is None else hist_i.reshape(p, m).astype(np.float64)
+    ext_r = np.concatenate([pre_r[1:], xr.reshape(t, m)], axis=0)
+    ext_i = np.concatenate([pre_i[1:], xi.reshape(t, m)], axis=0)
+    vr, vi = np.zeros((t, m)), np.zeros((t, m))
+    for d in range(p):  # v[t] = sum_d taps[d] * x[t - d]
+        vr += taps[d].astype(np.float64) * ext_r[p - 1 - d : p - 1 - d + t]
+        vi += taps[d].astype(np.float64) * ext_i[p - 1 - d : p - 1 - d + t]
+    ang = -2.0 * np.pi * np.outer(np.arange(m), np.arange(m)) / m
+    wre, wim = np.cos(ang), np.sin(ang)
+    yr, yi = vr @ wre - vi @ wim, vr @ wim + vi @ wre
+    return (yr**2 + yi**2).reshape(t // block_len, block_len, m).mean(axis=1)
+
+
+def wideband_and_dense_phases(dev, smi: str, sense_planar, pu_trace, params) -> list[dict]:
+    """Phases 10-13: the wideband kernel against its plain version and the
+    float64 oracles, the wideband path at full width, the dense-DFT sense
+    kernel against its plain version and on the sense scene, and their times.
+    Returns the two kernels' entries of the kernels line."""
+    import numpy as np
+    import torch
+
+    from cognitive_radio_network_tpu_torch.models import (
+        SenseConfig,
+        make_sharded_apply,
+        wideband_features,
+    )
+    from cognitive_radio_network_tpu_torch.ops import (
+        fused_band_features,
+        fused_band_features_plain,
+        fused_sense_ct,
+        wideband_energy_fused,
+        wideband_energy_fused_plain,
+    )
+    from cognitive_radio_network_tpu_torch.parallel import WidebandConfig, make_wideband_fn
+    from cognitive_radio_network_tpu_torch.signal.detector import occupancy_decision
+    from cognitive_radio_network_tpu_torch.signal.mlp import OccupancyMLP
+
+    wcfg = WidebandConfig()
+    m, bl = wcfg.num_channels, wcfg.block_len
+    taps_np = wcfg.taps()
+    taps = torch.from_numpy(taps_np).to(dev)
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def wide(t: int):
+        return (torch.randn(t * m, generator=g, device=dev),
+                torch.randn(t * m, generator=g, device=dev))
+
+    # 10. wideband, kernel vs plain on the card
+    wide_err = 0.0
+    big = wide(WIDE_T)
+    for label, (xr, xi) in ((f"T={WIDE_T}", big), ("T=1280", wide(1280))):
+        got = wideband_energy_fused(xr, xi, taps, wcfg, precision="highest")
+        want = wideband_energy_fused_plain(xr, xi, taps, wcfg, precision="highest")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+        err = (got - want).abs().max().item()
+        wide_err = max(wide_err, err)
+        rel = ((got - want).abs() / want.abs()).max().item()
+        phase("wideband-vs-plain", f"{label} (C={got.shape[0]}): max abs err {err:.3e}, max rel "
+              f"err {rel:.3e} (rtol 1e-5, atol 1e-7)")
+    xr, xi = wide(4096)
+    hist = tuple(h.reshape(4, 2 * m) for h in wide(8))
+    got_h = wideband_energy_fused(xr, xi, taps, wcfg, initial_history=hist)
+    want_h = wideband_energy_fused_plain(xr, xi, taps, wcfg, precision="highest",
+                                         initial_history=hist)
+    torch.testing.assert_close(got_h, want_h, rtol=1e-5, atol=1e-7)
+    rest = wideband_energy_fused(xr, xi, taps, wcfg)
+    if torch.equal(got_h[0], rest[0]) or not torch.equal(got_h[1:], rest[1:]):
+        raise AssertionError("initial_history must change cycle 0 and nothing else")
+    half = 2048 * m
+    first = wideband_energy_fused(xr[:half], xi[:half], taps, wcfg)
+    carry = (xr[half - 8 * m : half].reshape(4, 2 * m), xi[half - 8 * m : half].reshape(4, 2 * m))
+    second = wideband_energy_fused(xr[half:], xi[half:], taps, wcfg, initial_history=carry)
+    if not torch.equal(torch.cat([first, second]), rest):
+        raise AssertionError("a stream cut in two with the history carried differs from the whole")
+    xr_np, xi_np = xr.cpu().numpy(), xi.cpu().numpy()
+    hist_np = [h.cpu().numpy() for h in hist]
+    np.testing.assert_allclose(rest.cpu().numpy(), wideband_energy_f64(xr_np, xi_np, taps_np, bl),
+                               rtol=2e-3, atol=1e-5)
+    np.testing.assert_allclose(got_h.cpu().numpy(),
+                               wideband_energy_f64(xr_np, xi_np, taps_np, bl, *hist_np),
+                               rtol=2e-3, atol=1e-5)
+    o_rel = np.abs(rest.cpu().numpy() / wideband_energy_f64(xr_np, xi_np, taps_np, bl) - 1).max()
+    phase("wideband-vs-plain", "T=4096: with initial_history within rtol 1e-5, atol 1e-7 of the "
+          "plain version; the stream cut in two with the history carried equals the whole "
+          f"(torch.equal); float64 oracles with and without history within rtol 2e-3, atol 1e-5 "
+          f"(max rel err {o_rel:.3e})")
+    del xr, xi, got_h, want_h, rest, first, second
+
+    # 11. the wideband path at full width
+    n_wide = WIDE_T * m
+    table = 2.0 * np.pi * np.arange(m) / m
+    cos_t = torch.from_numpy(np.cos(table).astype(np.float32)).to(dev)
+    sin_t = torch.from_numpy(np.sin(table).astype(np.float32)).to(dev)
+
+    def scene(n: int):
+        """Planar scene: 1e-3 noise plus a unit tone at each active channel's centre."""
+        sr = 1e-3 * torch.randn(n, generator=g, device=dev)
+        si = 1e-3 * torch.randn(n, generator=g, device=dev)
+        idx = torch.arange(n, device=dev)
+        for k in WIDE_ACTIVE:
+            ph = (idx * k) % m  # exp(2 pi i k n / M) repeats every M samples
+            sr += cos_t[ph]
+            si += sin_t[ph]
+        return sr, si
+
+    sr, si = scene(n_wide)
+    fn = make_wideband_fn(wcfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = fn((sr, si))
+    torch.cuda.synchronize()
+    wide_s = time.perf_counter() - t0
+    wide_launches = wideband_energy_fused.launches
+    if wide_launches < 1:
+        raise AssertionError("the wideband path did not launch the wideband_energy_fused kernel")
+    cycles = WIDE_T // bl
+    for key, shape in (("energy", (cycles, m)), ("noise", (cycles, 1)), ("occupied", (cycles, m))):
+        v = res[key]
+        if tuple(v.shape) != shape or not torch.isfinite(v.float()).all():
+            raise AssertionError(f"{key}: shape {tuple(v.shape)} or non-finite values")
+    expect = torch.zeros(m, dtype=torch.bool, device=dev)
+    expect[list(WIDE_ACTIVE)] = True
+    wrong = int((res["occupied"][1:] != expect).sum())
+    if wrong:
+        raise AssertionError(f"occupied differs from the active channels in {wrong} places")
+    free = res["energy"][1:, ~expect]
+    margin = (free / (wcfg.threshold_ratio * res["noise"][1:])).max().item()
+    phase("wideband-path", f"T={WIDE_T} ({n_wide / 1e6:.1f} M wide samples, "
+          f"{2 * n_wide * 4 / 1e6:.0f} MB of f32 planes), {cycles} cycles through "
+          f"make_wideband_fn in {wide_s * 1e3:.1f} ms host time (first call); kernel launches "
+          f"{wide_launches}; occupied == channels {list(WIDE_ACTIVE)} in every cycle after the "
+          f"first; active energy {res['energy'][1:, expect].min().item():.4f} at least, a free "
+          f"channel reaches {margin:.3f} of the threshold at most")
+    # the serving end: features and the per-channel MLP over a batch of streams
+    feats = wideband_features(res["energy"], res["noise"])
+    if tuple(feats.shape) != (cycles, m, 4) or not torch.isfinite(feats).all():
+        raise AssertionError(f"wideband_features: shape {tuple(feats.shape)} or non-finite values")
+    del sr, si, res, feats
+    mlp = OccupancyMLP(4, 5, 1, device=dev)
+    with torch.no_grad():
+        for prm in mlp.parameters():
+            prm.normal_(generator=g)
+    batch = torch.stack(
+        [torch.stack(scene(APPLY_T * m), dim=-1) for _ in range(APPLY_BATCH)]
+    )  # (B, T*M, 2)
+    apply_fn = make_sharded_apply(wcfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    probs = apply_fn(mlp, batch)
+    torch.cuda.synchronize()
+    apply_s = time.perf_counter() - t0
+    apply_launches = wideband_energy_fused.launches
+    if apply_launches != APPLY_BATCH:
+        raise AssertionError(f"the apply step launched the wideband_energy_fused kernel "
+                             f"{apply_launches} times for {APPLY_BATCH} streams")
+    packed = fn(batch, use_fused=False)
+    if wideband_energy_fused.launches != apply_launches:
+        raise AssertionError("use_fused=False launched the kernel")
+    by_kernel = fn(batch)
+    torch.testing.assert_close(by_kernel["energy"], packed["energy"], rtol=1e-5, atol=1e-7)
+    if not torch.equal(by_kernel["occupied"], packed["occupied"]):
+        raise AssertionError("a batch's occupied differs between the kernel and the packed path")
+    if tuple(probs.shape) != (APPLY_BATCH, APPLY_T // bl, m):
+        raise AssertionError(f"apply: shape {tuple(probs.shape)}")
+    if not bool(((probs > 0) & (probs < 1)).all()):
+        raise AssertionError("apply: probabilities outside (0, 1)")
+    phase("wideband-path", f"make_sharded_apply on a ({APPLY_BATCH}, {APPLY_T * m}, 2) batch with "
+          f"a seeded 4-5-1 network: probabilities {tuple(probs.shape)} in (0, 1) "
+          f"[{probs.min().item():.4f}, {probs.max().item():.4f}] in {apply_s * 1e3:.1f} ms host "
+          f"time (first call); kernel launches {apply_launches}, one per stream; the batch's "
+          f"energy within rtol 1e-5, atol 1e-7 of the packed plain path (use_fused=False, 0 "
+          f"launches) and occupied equal")
+    del packed, by_kernel, probs
+
+    # 12. dense-DFT sense, kernel vs plain on the card
+    scfg = SenseConfig()
+    a, n = scfg.averaging, scfg.fft_length
+    dense_err = 0.0
+    dense_inputs = None
+    for c in (CYCLES, 5):
+        planes = (torch.randn(c * a, n, generator=g, device=dev),
+                  torch.randn(c * a, n, generator=g, device=dev))
+        got = fused_band_features(planes, averaging=a)
+        want = fused_band_features_plain(planes, averaging=a)
+        _, ct = fused_sense_ct(*planes, averaging=a)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
+        torch.testing.assert_close(got, ct, rtol=1e-4, atol=0.0)
+        dense_err = max(dense_err, (got - want).abs().max().item())
+        rel = ((got - want).abs() / want.abs()).max().item()
+        rel_ct = ((got - ct).abs() / ct.abs()).max().item()
+        phase("dense-vs-plain", f"C={c}: feats max rel err {rel:.3e} vs the plain version, "
+              f"{rel_ct:.3e} vs fused_sense_ct (rtol 1e-4)")
+        if c == CYCLES:
+            dense_inputs = planes
+    # the function on the sense scene of phase 4, through the MLP and the decision rule
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        feats = fused_band_features(sense_planar, averaging=a)
+        dec = occupancy_decision(params(feats), scfg.threshold)
+    torch.cuda.synchronize()
+    dense_launches = fused_band_features.launches
+    if dense_launches < 1:
+        raise AssertionError("fused_band_features did not launch its kernel")
+    if tuple(feats.shape) != (CYCLES, 4) or not torch.isfinite(feats).all():
+        raise AssertionError(f"dense features: shape {tuple(feats.shape)} or non-finite values")
+    hit = float((dec == pu_trace + 1).float().mean())
+    if hit < 0.99:
+        raise AssertionError(f"dense path: decision == PU channel + 1 on only {hit:.4f} of cycles")
+    phase("dense-path", f"fused_band_features on the {CYCLES}-cycle sense scene -> MLP -> "
+          f"decision: kernel launches {dense_launches}; decision == PU+1 on {hit:.4f}")
+
+    # 13. times: in turns plain, kernel, kernel, plain
+    def turns(kern, plain, inputs):
+        plain_1 = time_ms(plain, inputs)
+        kern_1 = time_ms(kern, inputs)
+        kern_2 = time_ms(kern, inputs)
+        plain_2 = time_ms(plain, inputs)
+        return (statistics.median(kern_1), statistics.median(plain_1),
+                statistics.median(kern_2), statistics.median(plain_2))
+
+    def wide_kern(xr, xi):
+        return wideband_energy_fused(xr, xi, taps, wcfg, precision="highest")
+
+    def wide_plain(xr, xi):
+        return wideband_energy_fused_plain(xr, xi, taps, wcfg, precision="highest")
+
+    wk, wp, wk2, wp2 = turns(wide_kern, wide_plain, [big])
+    read = 2 * n_wide * 4
+    gbs = read / (wk * 1e-3) / 1e9
+    # per row: the FIR (2 planes x 64 channels x 8 taps x 2), a 64-point
+    # complex FFT (5 N log2 N) and the power (3 x 64)
+    wide_bound, wide_by = bound(read + taps.numel() * 4 + cycles * m * 4,
+                                WIDE_T * (2 * m * 8 * 2 + 5 * m * 6 + 3 * m))
+    phase("time", f"wideband T={WIDE_T} ({n_wide / 1e6:.1f} M wide samples): kernel {wk:.4f} "
+          f"ms/dispatch ({n_wide / wk / 1e3:.0f} MS/s, {gbs:.0f} GB/s read, "
+          f"{gbs / 3350:.1%} of 3.35 TB/s; bound {wide_bound:.4f} ms by {wide_by}), plain "
+          f"{wp:.4f} ms/dispatch ({n_wide / wp / 1e3:.0f} MS/s), median of 3; second turn kernel "
+          f"{wk2:.4f}, plain {wp2:.4f}; {smi}")
+    sense_t = time_ms(fn, [(big,)])
+    sense_ms = statistics.median(sense_t)
+    phase("time", f"make_wideband_fn T={WIDE_T}: {sense_ms:.4f} ms/call "
+          f"({n_wide / sense_ms / 1e3:.0f} MS/s), median of 3 runs of 10 calls (runs "
+          f"{', '.join(f'{t:.4f}' for t in sense_t)}); {smi}")
+    bk, bp, bk2, bp2 = turns(fn, lambda b: fn(b, use_fused=False), [(batch,)])
+    phase("time", f"make_wideband_fn on the ({APPLY_BATCH}, {APPLY_T * m}, 2) batch "
+          f"({APPLY_BATCH * APPLY_T * m / 1e6:.1f} M wide samples): {bk:.4f} ms/call through the "
+          f"kernel, stream by stream ({APPLY_BATCH * APPLY_T * m / bk / 1e3:.0f} MS/s), {bp:.4f} "
+          f"ms/call through the packed plain path, median of 3; second turn kernel {bk2:.4f}, "
+          f"plain {bp2:.4f}; {smi}")
+    del batch
+    # where a call's time goes: host clock per synchronized call, then the
+    # device's operations and busy time per call from a profiler trace
+    wall_t = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn(big)
+            torch.cuda.synchronize()
+        wall_t.append((time.perf_counter() - t0) / 5 * 1e3)
+    wall_ms = statistics.median(wall_t)
+    from cognitive_radio_network_tpu_torch.profile_link import stage_device_times
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(5):
+            with torch.profiler.record_function("wideband_call"):
+                fn(big)
+        torch.cuda.synchronize()
+    trace_path = ROOT / "build" / "chip_smoke_wideband_trace.json"
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        prof.export_chrome_trace(str(trace_path))
+        trace = json.loads(trace_path.read_text())
+    finally:
+        trace_path.unlink(missing_ok=True)
+    _, _, busy_us, ops = stage_device_times(trace, ["wideband_call"])["wideband_call"]
+    if ops == 0:
+        raise AssertionError("the trace holds no device operation launched by the wideband call")
+    phase("time", f"make_wideband_fn T={WIDE_T}, one synchronized call: {wall_ms:.4f} ms by host "
+          f"clock (median of 5 runs of 5: {', '.join(f'{t:.4f}' for t in wall_t)}); profiled: "
+          f"{ops / 5:.1f} device operations and {busy_us / 5:.1f} us busy per call, so the device "
+          f"idles {1 - busy_us / 5 / (wall_ms * 1e3):.1%} of an unprofiled call; {smi}")
+    del big
+
+    def dense_kern(xr, xi):
+        return fused_band_features((xr, xi), averaging=a)
+
+    def dense_plain(xr, xi):
+        return fused_band_features_plain((xr, xi), averaging=a)
+
+    dk, dp, dk2, dp2 = turns(dense_kern, dense_plain, [dense_inputs])
+    # The bound is the function's: the planes read once and, per sample, the 9
+    # radix-2 stages of a 512-point FFT (5 flops each) and the magnitude, as
+    # for fused_sense_ct.  The dense product this kernel computes instead
+    # (8 n flops per sample) is the cost of its algorithm, printed beside it.
+    dense_bound, dense_by = bound(CYCLES * a * n * 8 + 2 * n * n * 4 + n * 16 + CYCLES * 16,
+                                  CYCLES * a * n * (5 * 9 + 3))
+    flops = 8 * CYCLES * a * n * n
+    phase("time", f"dense-DFT sense C={CYCLES}: kernel {dk:.4f} ms/dispatch "
+          f"(bound {dense_bound:.4f} ms by {dense_by}, so {dk / dense_bound:.1f}x its bound; its "
+          f"dense product is {flops / 1e9:.1f} GFLOP, {flops / FP32_FLOPS * 1e3:.4f} ms at 67 "
+          f"TFLOP/s: {flops / dk / 1e9:.1f} TFLOP/s f32, {flops / dk / 1e9 / 67:.1%} of the "
+          f"peak), plain {dp:.4f} ms/dispatch, median of 3; second turn kernel {dk2:.4f}, plain "
+          f"{dp2:.4f}; {smi}")
+    return [
+        {
+            "name": "wideband_energy_fused",
+            "route": "cuda",
+            "source": WIDE_SOURCE,
+            "replaces": WIDE_REPLACES,
+            "launches": wide_launches,
+            "max_abs_err": wide_err,
+            "ms": wk,
+            "plain_ms": wp,
+            "bound_ms": wide_bound,
+            "bound_by": wide_by,
+            "library_ms": None,  # FIR + DFT + power + block mean: no single PyTorch call
+        },
+        {
+            "name": "fused_band_features",
+            "route": "cuda",
+            "source": DENSE_SOURCE,
+            "replaces": DENSE_REPLACES,
+            "launches": dense_launches,
+            "max_abs_err": dense_err,
+            "ms": dk,
+            "plain_ms": dp,
+            "bound_ms": dense_bound,
+            "bound_by": dense_by,
+            "library_ms": None,  # DFT + magnitude + mean + band sums: no single PyTorch call
+        },
+    ]
 
 
 def main() -> int:
@@ -377,7 +785,7 @@ def main() -> int:
     )
     planar = tuple(scene[..., i].reshape(-1, n).contiguous() for i in (0, 1))
     torch.cuda.synchronize()
-    fused_sense_ct.launches = extract_windows.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res, freqs = sense_classify_trace(planar, params, 833e6, cfg)
     torch.cuda.synchronize()
@@ -413,7 +821,7 @@ def main() -> int:
     try:
         with IQWriter(cap, cfg.sample_rate_hz, cfg.center_hz) as w:
             w.write(scene.reshape(-1, 2).cpu().numpy())
-        del scene, planar
+        del scene
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "cognitive_radio_network_tpu_torch", "sense", str(cap),
@@ -458,8 +866,12 @@ def main() -> int:
               f"{statistics.median(plain_2):.4f}; {smi}")
         del inputs
 
-    del params
     extract_entry = link_phases(dev, smi)
+    new_entries = wideband_and_dense_phases(dev, smi, planar, trace, params)
+    # the planes read once, the spectrum and the features written once; per
+    # sample 9 radix-2 stages of 5 flops and the magnitude
+    sense_bound, sense_by = bound(CYCLES * a * n * 8 + CYCLES * (n + 4) * 4 + n * 4 + n * 16,
+                                  CYCLES * a * n * 50)
     kernels = [{
         "name": "fused_sense_ct",
         "route": "cuda",
@@ -469,7 +881,10 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": times[CYCLES][0],
         "plain_ms": times[CYCLES][1],
-    }, extract_entry]
+        "bound_ms": sense_bound,
+        "bound_by": sense_by,
+        "library_ms": None,  # FFT + magnitude + mean + band sums: no single PyTorch call
+    }, extract_entry, *new_entries]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

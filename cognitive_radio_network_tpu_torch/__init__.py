@@ -11,15 +11,21 @@ reference package, at run time.  Each kernel wrapper picks the kernel or its
 plain PyTorch version by the device of the tensor it is given
 (:mod:`.utils.device`).
 
-Ported so far (the sense->classify main path and the fixed-config OFDM link):
+Ported so far (the sense->classify main path, the fixed-config OFDM link and
+the one-device 64-channel wideband detector):
 
-signal    IQ layouts, DFT spectra, band features, the 4-5-3 MLP, detector,
-          filter design, m-sequences
+signal    IQ layouts, DFT spectra, band features, the sigmoid MLP, detector,
+          filter design, m-sequences, the polyphase channelizer
 ops       ``fused_sense_ct``: 512-point FFT -> |X| -> mean over buffers ->
           band sums, squared; ``extract_windows``: K windows of two IQ
-          planes at dynamic offsets (CUDA kernels + plain versions)
+          planes at dynamic offsets; ``wideband_energy_fused``: polyphase
+          FIR -> 64-point DFT -> power -> mean per sense cycle;
+          ``fused_band_features``: the sense features through a dense
+          512-point DFT product (CUDA kernels + plain versions)
 models    ``SenseConfig``, ``sense_classify``, ``sense_classify_trace``,
-          ``make_sense_fn``
+          ``make_sense_fn``; ``wideband_features``, ``make_sharded_apply``
+parallel  ``WidebandConfig``, ``wideband_energy_packed``, ``wideband_sense``,
+          ``make_wideband_fn`` (one device)
 phy       bits, CRC, FEC, modem, subcarrier allocations, ``OFDMFrameGen``,
           ``OFDMFrameSync`` (detect, demod, decode, block receive)
 env       Markov/random PU traces, scene synthesis, channel impairments

@@ -34,19 +34,23 @@
 // bit-reversed positions; 9 decimation-in-time stages of 256 butterflies
 // follow, two per thread; thread t then owns bins t, t+128, t+256, t+384,
 // whose |X| it accumulates in registers over the A rows.  The grid has
-// exactly C blocks, so no cycle is padded and no block is partial.
+// exactly C blocks, so no cycle is padded and no block is partial.  The
+// magnitude, the mean and the band sums are those of sense_epilogue.cuh,
+// shared with the dense-DFT kernel (fused_sense.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sense_epilogue.cuh"
+
 namespace {
 
-constexpr int kN = 512;
+constexpr int kN = crn::kSenseN;
 constexpr int kLog2N = 9;
-constexpr int kThreads = 128;
-constexpr int kBins = kN / kThreads;          // bins (and samples) per thread
+constexpr int kThreads = crn::kSenseThreads;
+constexpr int kBins = crn::kSenseBins;        // bins (and samples) per thread
 constexpr int kButterflies = kN / 2 / kThreads;  // butterflies per thread per stage
-constexpr int kBands = 4;
+constexpr int kBands = crn::kSenseBands;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -130,38 +134,11 @@ fused_sense_ct_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
 #pragma unroll
     for (int j = 0; j < kBins; ++j) {
       const int k = t + j * kThreads;
-      const float re = s_re[k], im = s_im[k];
-      acc[j] += sqrtf(re * re + im * im);
+      acc[j] += crn::magnitude(s_re[k], s_im[k]);
     }
   }
 
-  // mean over the A buffers (sum, then divide), then the band partial sums
-  float part[kBands] = {0.f, 0.f, 0.f, 0.f};
-  float* avg_row = avg + cycle * kN;
-#pragma unroll
-  for (int j = 0; j < kBins; ++j) {
-    const int k = t + j * kThreads;
-    const float v = acc[j] / static_cast<float>(averaging);
-    avg_row[k] = v;
-#pragma unroll
-    for (int q = 0; q < kBands; ++q) part[q] += band[k * kBands + q] * v;
-  }
-#pragma unroll
-  for (int q = 0; q < kBands; ++q) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) part[q] += __shfl_down_sync(0xffffffffu, part[q], off);
-  }
-  if ((t & 31) == 0) {
-#pragma unroll
-    for (int q = 0; q < kBands; ++q) s_red[t >> 5][q] = part[q];
-  }
-  __syncthreads();
-  if (t < kBands) {
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) sum += s_red[w][t];
-    feats[cycle * kBands + t] = sum * sum;  // power = (sum |X|)^2, CE_Predictive_Node.cpp:193-197
-  }
+  crn::sense_epilogue(acc, averaging, band, avg + cycle * kN, feats + cycle * kBands, s_red);
 }
 
 }  // namespace

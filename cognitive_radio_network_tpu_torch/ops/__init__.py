@@ -1,17 +1,38 @@
 """Hand-written CUDA kernels for the hot paths, each beside its plain version.
 
-``fused_sense_ct`` (CUDA C++, ``csrc/fused_sense_ct.cu``) replaces the
-Pallas TPU kernel of ``cognitive_radio_network_tpu/ops/fused_sense_ct.py``;
-``extract_windows`` (CUDA C++, ``csrc/extract_windows.cu``) replaces the one
-of ``cognitive_radio_network_tpu/ops/extract.py``.  The other two TPU kernels
-(``fused_wideband``, ``fused_sense``) are not ported yet.  Kernels build at
-first launch, never at import.
+Each replaces one Pallas TPU kernel of ``cognitive_radio_network_tpu/ops``
+(CUDA C++ for ``sm_90a``, sources under ``csrc/``):
+
+``fused_sense_ct``         ``fused_sense_ct.py``  -> ``csrc/fused_sense_ct.cu``
+``extract_windows``        ``extract.py``         -> ``csrc/extract_windows.cu``
+``wideband_energy_fused``  ``fused_wideband.py``  -> ``csrc/fused_wideband.cu``
+``fused_band_features``    ``fused_sense.py``     -> ``csrc/fused_sense.cu``
+
+Every TPU kernel of the reference has its counterpart here.  Kernels build
+at first launch, never at import.
 """
 
 from cognitive_radio_network_tpu_torch.ops.extract import extract_windows, extract_windows_plain
+from cognitive_radio_network_tpu_torch.ops.fused_sense import (
+    fused_band_features,
+    fused_band_features_plain,
+)
 from cognitive_radio_network_tpu_torch.ops.fused_sense_ct import (
     fused_sense_ct,
     fused_sense_ct_plain,
 )
+from cognitive_radio_network_tpu_torch.ops.fused_wideband import (
+    wideband_energy_fused,
+    wideband_energy_fused_plain,
+)
 
-__all__ = ["extract_windows", "extract_windows_plain", "fused_sense_ct", "fused_sense_ct_plain"]
+__all__ = [
+    "extract_windows",
+    "extract_windows_plain",
+    "fused_band_features",
+    "fused_band_features_plain",
+    "fused_sense_ct",
+    "fused_sense_ct_plain",
+    "wideband_energy_fused",
+    "wideband_energy_fused_plain",
+]

@@ -34,6 +34,8 @@ NVCC_FLAGS = (
     "-shared",
     "-Xcompiler",
     "-fPIC",
+    "--threads",  # the sources compile side by side, as many at once as there are cores
+    "0",
 )
 
 # entry point -> argtypes; restype is c_int (a cudaError_t) for all
@@ -43,6 +45,10 @@ _SIGNATURES = {
     "crn_fused_sense_ct": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _P),
     # rr, ri, offsets, out_r, out_i, n, k, wlen, stream
     "crn_extract_windows": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
+    # xr, xi, taps, tw, hist_r, hist_i (null: none), out, cycles, block_len, stream
+    "crn_fused_wideband": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _P),
+    # xr, xi, fre, fim, band, feats, cycles, averaging, stream
+    "crn_fused_sense": (_P, _P, _P, _P, _P, _P, _L, _I, _P),
 }
 
 

@@ -2,8 +2,8 @@
 
 Port of ``cognitive_radio_network_tpu/signal`` with the same numerical
 contracts (CE_Predictive_Node.cpp:146-235).  ``msequence`` (the PRBS of the
-OFDM preambles and pilots) is imported by its module path.  Resampling and
-the channelizer are not ported yet.
+OFDM preambles and pilots) is imported by its module path.  Resampling is
+not ported yet.
 """
 
 from cognitive_radio_network_tpu_torch.signal import filters
@@ -12,6 +12,11 @@ from cognitive_radio_network_tpu_torch.signal.bands import (
     SensingBands,
     band_features,
     band_matrix,
+)
+from cognitive_radio_network_tpu_torch.signal.channelizer import (
+    channelize,
+    channelize_planes,
+    polyphase_taps,
 )
 from cognitive_radio_network_tpu_torch.signal.detector import (
     DECISION_ALL_BUSY,
@@ -24,7 +29,12 @@ from cognitive_radio_network_tpu_torch.signal.fft import (
     dft_matrices,
     spectrum_magnitude,
 )
-from cognitive_radio_network_tpu_torch.signal.iq import from_planes, split_iq, to_planes
+from cognitive_radio_network_tpu_torch.signal.iq import (
+    from_planes,
+    planes_abs2,
+    split_iq,
+    to_planes,
+)
 from cognitive_radio_network_tpu_torch.signal.mlp import (
     OccupancyMLP,
     mlp_forward,
@@ -51,5 +61,9 @@ __all__ = [
     "to_planes",
     "from_planes",
     "split_iq",
+    "planes_abs2",
     "filters",
+    "polyphase_taps",
+    "channelize",
+    "channelize_planes",
 ]

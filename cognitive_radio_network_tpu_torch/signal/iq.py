@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["split_iq", "to_planes", "to_planar", "from_planes"]
+__all__ = ["split_iq", "to_planes", "to_planar", "from_planes", "planes_abs2"]
 
 
 def _tensor(x) -> torch.Tensor:
@@ -65,3 +65,8 @@ def from_planes(x):
     if isinstance(x, np.ndarray):
         return (x[..., 0] + 1j * x[..., 1]).astype(np.complex64)
     return torch.complex(x[..., 0].float(), x[..., 1].float())
+
+
+def planes_abs2(x: torch.Tensor) -> torch.Tensor:
+    """|z|^2 for planes input (..., N, 2) -> (..., N)."""
+    return x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]

@@ -10,20 +10,33 @@ JAX, which a machine for the port need not have):
 Bounds are those of chip_smoke.py: avg rtol 1e-4, atol 1e-5 and feats rtol
 1e-4 for f32 input; feats rtol 2e-2 of the f32 result for bf16 input.
 ``extract_windows`` is a copy: its kernel must equal the plain version bit
-for bit (``torch.equal``).
+for bit (``torch.equal``).  ``wideband_energy_fused``: rtol 1e-5, atol 1e-7
+against the plain version at "highest" (both float32, an FFT against a matrix
+product); a stream cut in two with the history carried gives the whole
+stream's bits.  ``fused_band_features``: rtol 1e-4.
 """
 
 import pytest
 import torch
 
 from cognitive_radio_network_tpu_torch.models import SenseConfig, make_sense_fn
+from cognitive_radio_network_tpu_torch.models.distributed import make_sharded_apply
 from cognitive_radio_network_tpu_torch.ops.extract import extract_windows, extract_windows_plain
+from cognitive_radio_network_tpu_torch.ops.fused_sense import (
+    fused_band_features,
+    fused_band_features_plain,
+)
 from cognitive_radio_network_tpu_torch.ops.fused_sense_ct import (
     fused_sense_ct,
     fused_sense_ct_plain,
 )
+from cognitive_radio_network_tpu_torch.ops.fused_wideband import (
+    wideband_energy_fused,
+    wideband_energy_fused_plain,
+)
+from cognitive_radio_network_tpu_torch.parallel.wideband import WidebandConfig, make_wideband_fn
 from cognitive_radio_network_tpu_torch.phy import OFDMFrameConfig, OFDMFrameGen, OFDMFrameSync
-from cognitive_radio_network_tpu_torch.signal.mlp import reference_weights
+from cognitive_radio_network_tpu_torch.signal.mlp import OccupancyMLP, reference_weights
 
 pytestmark = [
     pytest.mark.cuda,
@@ -180,3 +193,122 @@ def test_receive_block_on_card_takes_each_iq_form(form):
     for f, h, p in zip(frames, headers, payloads):
         assert (f["header"] == h).all() and (f["payload"] == p).all()
         assert f["stats"].payload_valid
+
+
+def _wide(t, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(t * 64, generator=g, device="cuda") for _ in range(2))
+
+
+@pytest.mark.parametrize(
+    "t,block_len", [(524288, 128), (1280, 128), (128, 128), (60, 6), (100, 20), (64, 2)]
+)
+def test_wideband_kernel_matches_plain(t, block_len):
+    cfg = WidebandConfig(block_len=block_len, precision="highest")
+    xr, xi = _wide(t, seed=block_len)
+    before = wideband_energy_fused.launches
+    got = wideband_energy_fused(xr, xi, cfg.taps(), cfg, precision="highest")
+    assert wideband_energy_fused.launches == before + 1
+    want = wideband_energy_fused_plain(xr, xi, cfg.taps(), cfg, precision="highest")
+    torch.cuda.synchronize()
+    assert got.shape == (t // block_len, 64)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+
+
+def test_wideband_kernel_history_and_split_stream():
+    cfg = WidebandConfig()
+    taps = torch.from_numpy(cfg.taps()).cuda()
+    xr, xi = _wide(4096, seed=1)
+    hist = tuple(h.reshape(4, 128).contiguous() for h in _wide(8, seed=2))
+    got = wideband_energy_fused(xr, xi, taps, cfg, initial_history=hist)
+    want = wideband_energy_fused_plain(xr, xi, taps, cfg, precision="highest", initial_history=hist)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+    rest = wideband_energy_fused(xr, xi, taps, cfg)
+    assert not torch.equal(got[0], rest[0]) and torch.equal(got[1:], rest[1:])
+    h = 2048 * 64
+    first = wideband_energy_fused(xr[:h], xi[:h], taps, cfg)
+    carry = (xr[h - 512 : h].reshape(4, 128), xi[h - 512 : h].reshape(4, 128))
+    second = wideband_energy_fused(xr[h:], xi[h:], taps, cfg, initial_history=carry)
+    assert torch.equal(torch.cat([first, second]), rest)
+    assert torch.equal(wideband_energy_fused(xr, xi, taps, cfg), rest)  # the same from run to run
+
+
+def test_wideband_kernel_rejects_bad_input():
+    cfg = WidebandConfig()
+    xr, xi = _wide(256)
+    with pytest.raises(TypeError, match="float32"):
+        wideband_energy_fused(xr.double(), xi.double(), cfg.taps(), cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        wideband_energy_fused(xr[::2], xi[::2], cfg.taps(), cfg)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wideband_energy_fused(xr[1 : 1 + 128 * 64], xi[1 : 1 + 128 * 64], cfg.taps(), cfg)
+    with pytest.raises(ValueError, match="one card"):
+        wideband_energy_fused(xr, xi.cpu(), cfg.taps(), cfg)
+    with pytest.raises(ValueError, match="whole sense cycles"):
+        wideband_energy_fused(xr[: 100 * 64], xi[: 100 * 64], cfg.taps(), cfg)
+    assert wideband_energy_fused(xr[:0], xi[:0], cfg.taps(), cfg).shape == (0, 64)
+
+
+def test_wideband_path_launches_kernel_and_matches_cpu():
+    cfg = WidebandConfig()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    t, active = 1024, [3, 17, 40]
+    n = torch.arange(t * 64, device="cuda", dtype=torch.float64)
+    planes = 1e-3 * torch.randn(t * 64, 2, generator=g, device="cuda")
+    for k in active:
+        ph = 2 * torch.pi * ((k * n) % 64) / 64
+        planes += torch.stack([ph.cos(), ph.sin()], dim=-1).float()
+    before = wideband_energy_fused.launches
+    res = make_wideband_fn(cfg)(planes)
+    assert wideband_energy_fused.launches == before + 1
+    want = torch.zeros(64, dtype=torch.bool, device="cuda")
+    want[active] = True
+    assert bool((res["occupied"][1:] == want).all())
+    cpu = make_wideband_fn(cfg, device="cpu")(planes.cpu())
+    assert torch.equal(res["occupied"].cpu(), cpu["occupied"])
+    torch.testing.assert_close(res["noise"].cpu(), cpu["noise"], rtol=1e-4, atol=1e-9)
+    batch = torch.stack([planes, planes.flip(0)])
+    mlp = OccupancyMLP(4, 5, 1, device="cuda")
+    with torch.no_grad():
+        mlp.w1.normal_(generator=g)
+        mlp.w2.normal_(generator=g)
+    before = wideband_energy_fused.launches
+    probs = make_sharded_apply(cfg)(mlp, batch)
+    assert wideband_energy_fused.launches == before + 2  # one launch per stream of the batch
+    assert probs.shape == (2, t // 128, 64)
+    assert bool(((probs > 0) & (probs < 1)).all())
+    # the batch through the kernel, stream by stream, against the packed plain path
+    fn = make_wideband_fn(cfg)
+    fused, packed = fn(batch), fn(batch, use_fused=False)
+    assert wideband_energy_fused.launches == before + 4
+    assert torch.equal(fused["energy"][0], res["energy"])
+    torch.testing.assert_close(fused["energy"], packed["energy"], rtol=1e-5, atol=1e-7)
+    assert torch.equal(fused["occupied"], packed["occupied"])
+
+
+@pytest.mark.parametrize("cycles,averaging", [(4096, 10), (5, 10), (1, 10), (3, 100), (20, 1), (7, 3)])
+def test_dense_sense_kernel_matches_plain(cycles, averaging):
+    xr, xi = _planes(cycles, seed=averaging, a=averaging)
+    before = fused_band_features.launches
+    got = fused_band_features((xr, xi), averaging=averaging)
+    assert fused_band_features.launches == before + 1
+    want = fused_band_features_plain((xr, xi), averaging=averaging)
+    torch.cuda.synchronize()
+    assert got.shape == (cycles, 4)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
+    _, ct = fused_sense_ct(xr, xi, averaging=averaging)
+    torch.testing.assert_close(got, ct, rtol=1e-4, atol=0.0)
+
+
+def test_dense_sense_kernel_takes_interleaved_planes_and_rejects_bad_input():
+    xr, xi = _planes(6, seed=9)
+    planes = torch.stack([xr, xi], dim=-1).reshape(6, 10, 512, 2)
+    got = fused_band_features(planes)
+    assert torch.equal(got, fused_band_features((xr, xi)))
+    assert fused_band_features(planes[:0]).shape == (0, 4)
+    with pytest.raises(TypeError, match="float32"):
+        fused_band_features(planes.double())
+    with pytest.raises(ValueError, match="N=512"):
+        fused_band_features((xr.reshape(-1, 256), xi.reshape(-1, 256)))
+    with pytest.raises(ValueError, match="but xi on cpu"):
+        fused_band_features((xr, xi.cpu()))

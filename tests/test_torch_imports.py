@@ -32,7 +32,13 @@ def test_port_modules_load_without_jax():
         "cognitive_radio_network_tpu_torch.phy, cognitive_radio_network_tpu_torch.ops.extract, "
         "cognitive_radio_network_tpu_torch.phy.framesync, "
         "cognitive_radio_network_tpu_torch.signal.msequence, "
-        "cognitive_radio_network_tpu_torch.profile_link\n"
+        "cognitive_radio_network_tpu_torch.profile_link, "
+        "cognitive_radio_network_tpu_torch.parallel, "
+        "cognitive_radio_network_tpu_torch.parallel.wideband, "
+        "cognitive_radio_network_tpu_torch.models.distributed, "
+        "cognitive_radio_network_tpu_torch.signal.channelizer, "
+        "cognitive_radio_network_tpu_torch.ops.fused_wideband, "
+        "cognitive_radio_network_tpu_torch.ops.fused_sense\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cognitive_radio_network_tpu')]\n"
         "assert not bad, bad\n"
