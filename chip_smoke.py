@@ -20,7 +20,8 @@ one line; any failure raises, and the exit code is then non-zero.
 5. CLI: a 4096-cycle capture through ``python -m
    cognitive_radio_network_tpu_torch sense`` at 256 cycles per dispatch.
 6. times: median of 3 for the kernel and the plain version at C=4096 and
-   C=256, with CUDA events.
+   C=256, with CUDA events, and for the kernel on bf16 input at C=4096; GB/s
+   read and the share of 3.35 TB/s beside each bound.
 7. extract, kernel vs plain: ``extract_windows`` against
    ``extract_windows_plain`` (``torch.equal``) on the OFDM link's block of
    N=1,265,664 samples at K=256 windows of 4864 (frames) and 160 (timing
@@ -33,8 +34,10 @@ one line; any failure raises, and the exit code is then non-zero.
    plain path; then ``receive_block`` on two 16-frame bursts as ``assemble``
    returns them on the card (qam16/none as complex64; v27/v27 with 64-byte
    payloads as (N, 2) planes).
-9. times: median of 3 for the extract kernel and its plain version at both
-   link shapes, and for one ``rx_block_fn(k=256)`` call (MS/s, frames/s).
+9. times: the host time of the extract wrapper's launch path (a host clock
+   over 2000 calls: its checks, its allocations, the whole call), then median
+   of 3 for the extract kernel and its plain version at both link shapes,
+   and for one ``rx_block_fn(k=256)`` call (MS/s, frames/s).
 10. wideband, kernel vs plain: ``wideband_energy_fused`` against
    ``wideband_energy_fused_plain`` (rtol 1e-5, atol 1e-7) at T=524,288
    per-channel times (4096 sense cycles, 33.5 M wide samples) and at T=1,280
@@ -65,13 +68,14 @@ one line; any failure raises, and the exit code is then non-zero.
 The line before the last is a JSON object with each kernel's launches on its
 path, error, times and bound (the least time the card could take: bytes moved
 over 3.35 TB/s or the float32 operations the function needs, with an FFT for
-a DFT, over 67 TFLOP/s, whichever is larger);
-the last line is ``{"ok": true, "device": {...}}``.
+a DFT, over 67 TFLOP/s, whichever is larger).
+The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -109,6 +113,28 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def sense_bound(cycles: int, averaging: int, n: int, itemsize: int) -> tuple[float, str]:
+    """The bound of the sense function: both planes read once, the spectrum and
+    the features written once, the twiddle and band tables read once; per
+    sample the 9 radix-2 stages of an FFT (5 flops each) and the magnitude."""
+    samples = cycles * averaging * n
+    return bound(samples * 2 * itemsize + cycles * (n + 4) * 4 + n * 8 + n * 16, samples * 50)
+
+
+def kernel_of(ptxas_line: str) -> str:
+    """The kernel a ptxas "Compiling entry function" line names, with its
+    template arguments as mangled (a mangled name holds each identifier after
+    its length)."""
+    symbol = ptxas_line.split("'")[1] if "'" in ptxas_line else ptxas_line
+    for m in re.finditer(r"\d+", symbol):
+        for start in range(m.start(), m.end()):  # the digits may follow a hash's digits
+            name = symbol[m.end() : m.end() + int(symbol[start : m.end()])]
+            if name.endswith("_kernel"):
+                args = re.match(r"I(\w+?)EE", symbol[m.end() + len(name) :])
+                return f"{name}<{args.group(1)}>" if args else name
+    return symbol
+
+
 def reset_counts() -> None:
     """Every kernel's launch count to 0, right before a path is driven."""
     from cognitive_radio_network_tpu_torch import ops
@@ -142,6 +168,50 @@ def time_ms(fn, inputs, trials: int = 3, reps: int = 10) -> list[float]:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop) / reps)
     return times
+
+
+def host_us(fn, calls: int = 2000) -> float:
+    """Host time per call in us: the least of 3 runs of ``calls`` calls by the
+    host clock, the device drained between runs and not inside them."""
+    import torch
+
+    for _ in range(50):
+        fn()
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return best
+
+
+def launch_path_table(rr, ri, offs, smi: str) -> None:
+    """Where the extract wrapper's host time goes: the input checks and the
+    output allocations alone, then the whole call, whose remainder is the
+    ctypes call with the launch in it.  The other three wrappers share the
+    path."""
+    import torch
+
+    from cognitive_radio_network_tpu_torch.ops._launch import input_ptr
+    from cognitive_radio_network_tpu_torch.ops.extract import extract_windows
+
+    dev, k, wlen = rr.device, offs.shape[0], 4864
+    offs32 = offs.to(torch.int32)
+    rows = [
+        ("three input_ptr checks", lambda: [
+            input_ptr(rr, "rr", dev), input_ptr(ri, "ri", dev), input_ptr(offs, "offsets", dev)]),
+        ("two rr.new_empty((K, wlen))", lambda: (rr.new_empty((k, wlen)), rr.new_empty((k, wlen)))),
+        ("whole wrapper, int64 offsets, wlen=4864", lambda: extract_windows(rr, ri, offs, 4864)),
+        ("whole wrapper, int32 offsets, wlen=4864", lambda: extract_windows(rr, ri, offs32, 4864)),
+        ("whole wrapper, int64 offsets, wlen=160", lambda: extract_windows(rr, ri, offs, 160)),
+        ("for scale: one small PyTorch operator, rr[:1024] + 1", lambda: rr[:1024] + 1),
+    ]
+    for label, fn in rows:
+        phase("launch-path", f"{label}: {host_us(fn):.3f} us host time per call")
+    phase("launch-path", f"least of 3 runs of 2000 calls each, by the host clock; {smi}")
 
 
 def link_phases(dev, smi: str) -> dict:
@@ -197,16 +267,17 @@ def link_phases(dev, smi: str) -> dict:
     hdrs = rng.integers(0, 256, (LINK_FRAMES, 8)).astype(np.uint8)
     pays = rng.integers(0, 256, (LINK_FRAMES, LINK_PAYLOAD)).astype(np.uint8)
     t0 = time.perf_counter()
-    frames = gen.assemble(hdrs, pays, as_planes=True, device=dev)  # (F, flen, 2)
+    frames = gen.assemble(hdrs, pays, as_planes=True)  # (F, flen, 2), on the card by default
     gap = torch.zeros((LINK_FRAMES, LINK_GAP, 2), device=dev)
     block = torch.cat([frames, gap], dim=1).reshape(-1, 2)
     lr, li = block[:, 0].contiguous(), block[:, 1].contiguous()
     torch.cuda.synchronize()
     asm_s = time.perf_counter() - t0
     torch.testing.assert_close(
-        frames[:4].cpu(), gen.assemble(hdrs[:4], pays[:4], as_planes=True), rtol=0, atol=1e-5
+        frames[:4].cpu(), gen.assemble(hdrs[:4], pays[:4], as_planes=True, device="cpu"),
+        rtol=0, atol=1e-5,
     )
-    sync = OFDMFrameSync(cfg, LINK_PAYLOAD, device=dev)
+    sync = OFDMFrameSync(cfg, LINK_PAYLOAD)
     rxfn = sync.rx_block_fn(k=LINK_FRAMES)
     nvalid = torch.tensor(n_link, device=dev)
     torch.cuda.synchronize()
@@ -258,12 +329,12 @@ def link_phases(dev, smi: str) -> dict:
         g2 = OFDMFrameGen(c2, payload_len)
         h2 = rng.integers(0, 256, (16, 8)).astype(np.uint8)
         p2 = rng.integers(0, 256, (16, payload_len)).astype(np.uint8)
-        f2 = g2.assemble(h2, p2, as_planes=as_planes, device=dev)
+        f2 = g2.assemble(h2, p2, as_planes=as_planes)
         lead = torch.zeros((16, 137, *f2.shape[2:]), dtype=f2.dtype, device=dev)
         b2 = torch.cat([lead, f2], dim=1).reshape(-1, *f2.shape[2:])
         before = extract_windows.launches
         t0 = time.perf_counter()
-        got = OFDMFrameSync(c2, payload_len, device=dev).receive_block(b2, k=32)
+        got = OFDMFrameSync(c2, payload_len).receive_block(b2, k=32)
         rb_s = time.perf_counter() - t0
         if extract_windows.launches < before + 2:
             raise AssertionError(f"receive_block {label} did not launch the extract kernel")
@@ -278,7 +349,9 @@ def link_phases(dev, smi: str) -> dict:
         phase("link", f"receive_block {label}, {payload_len}-byte payloads, {form} block from "
               f"assemble on the card: 16/16 frames intact in {rb_s:.2f} s host time (first call)")
 
-    # 9. times: in turns plain, kernel, kernel, plain
+    # 9. the wrapper's host time, step by step, then times: in turns plain,
+    # kernel, kernel, plain
+    launch_path_table(rr, ri, offsets(256, n_link, 4864), smi)
     times = {}
     for wlen in (4864, 160):
         inputs = [(rr, ri, offsets(256, n_link, wlen), wlen)]
@@ -711,7 +784,9 @@ def main() -> int:
     if not lib_path.exists():
         proc = _build.build(lib_path, extra_flags=("-Xptxas", "-v"))
         for line in (proc.stdout + proc.stderr).splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                phase("build", f"{kernel_of(line)}:")
+            elif "registers" in line or "spill" in line:
                 phase("build", line.strip())
     _build.load()
     phase("build", f"{lib_path.relative_to(ROOT)} ready in {time.perf_counter() - t0:.1f} s")
@@ -761,13 +836,10 @@ def main() -> int:
         as_planes=True,
     )
     g_np = g_planes.cpu().numpy().reshape(gc, a, n, 2)
-    g_out = fn(
-        (
-            torch.from_numpy(g_np[..., 0].reshape(-1, n).copy()).to(dev),
-            torch.from_numpy(g_np[..., 1].reshape(-1, n).copy()).to(dev),
-        ),
-        params,
-    )
+    # numpy planes: the function moves host input to the card, its default device
+    g_out = fn((g_np[..., 0].reshape(-1, n).copy(), g_np[..., 1].reshape(-1, n).copy()), params)
+    if g_out["decision"].device.type != "cuda":
+        raise AssertionError("make_sense_fn sensed host input off the card")
     g_out = {k: v.cpu().numpy() for k, v in g_out.items()}
     feats_ref, outs_ref, decs_ref = gold.sense_classify_reference(g_np[..., 0] + 1j * g_np[..., 1])
     np.testing.assert_allclose(g_out["features"], feats_ref, rtol=5e-3)
@@ -860,18 +932,33 @@ def main() -> int:
         k_ms, p_ms = statistics.median(kern_1), statistics.median(plain_1)
         times[c] = (k_ms, p_ms)
         msps = c * a * n / 1e3
+        b_ms, by = sense_bound(c, a, n, 4)
+        gbs = c * a * n * 8 / (k_ms * 1e-3) / 1e9
         phase("time", f"C={c} f32 ({bufs} input sets): kernel {k_ms:.4f} ms/dispatch "
-              f"({msps / k_ms:.0f} MS/s), plain {p_ms:.4f} ms/dispatch ({msps / p_ms:.0f} MS/s), "
-              f"median of 3; second turn kernel {statistics.median(kern_2):.4f}, plain "
-              f"{statistics.median(plain_2):.4f}; {smi}")
+              f"({msps / k_ms:.0f} MS/s, {gbs:.0f} GB/s read, {gbs / 3350:.1%} of 3.35 TB/s; "
+              f"bound {b_ms:.4f} ms by {by}, so {k_ms / b_ms:.2f}x its bound), plain {p_ms:.4f} "
+              f"ms/dispatch ({msps / p_ms:.0f} MS/s), median of 3; second turn kernel "
+              f"{statistics.median(kern_2):.4f}, plain {statistics.median(plain_2):.4f}; {smi}")
+        if c == CYCLES:
+            # for scale, not a bound and not the kernel's function: what one
+            # PyTorch reduction reaches reading the same planes once
+            s_ms = statistics.median(time_ms(lambda xr, xi: (xr.sum(), xi.sum()), inputs))
+            phase("time", f"C={c} f32, for scale: torch.sum over both planes {s_ms:.4f} ms "
+                  f"({c * a * n * 8 / (s_ms * 1e-3) / 1e9:.0f} GB/s read); {smi}")
+            # bf16 ingest: the same float32 passes on half the bytes
+            half = [(xr.bfloat16(), xi.bfloat16()) for xr, xi in inputs]
+            h_ms = statistics.median(time_ms(kern, half))
+            b_ms, by = sense_bound(c, a, n, 2)
+            gbs = c * a * n * 4 / (h_ms * 1e-3) / 1e9
+            phase("time", f"C={c} bf16 input: kernel {h_ms:.4f} ms/dispatch ({msps / h_ms:.0f} "
+                  f"MS/s, {gbs:.0f} GB/s read, {gbs / 3350:.1%} of 3.35 TB/s; bound {b_ms:.4f} ms "
+                  f"by {by}, so {h_ms / b_ms:.2f}x its bound), median of 3; {smi}")
+            del half
         del inputs
 
     extract_entry = link_phases(dev, smi)
     new_entries = wideband_and_dense_phases(dev, smi, planar, trace, params)
-    # the planes read once, the spectrum and the features written once; per
-    # sample 9 radix-2 stages of 5 flops and the magnitude
-    sense_bound, sense_by = bound(CYCLES * a * n * 8 + CYCLES * (n + 4) * 4 + n * 4 + n * 16,
-                                  CYCLES * a * n * 50)
+    bound_ms, bound_by = sense_bound(CYCLES, a, n, 4)
     kernels = [{
         "name": "fused_sense_ct",
         "route": "cuda",
@@ -881,8 +968,8 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": times[CYCLES][0],
         "plain_ms": times[CYCLES][1],
-        "bound_ms": sense_bound,
-        "bound_by": sense_by,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": None,  # FFT + magnitude + mean + band sums: no single PyTorch call
     }, extract_entry, *new_entries]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -42,7 +42,7 @@ def _cmd_sense(args) -> int:
         cfg = dataclasses.replace(cfg, feature_transform=meta["feature_transform"])
     else:
         params = reference_weights(device=device)
-    fn = make_sense_fn(cfg)
+    fn = make_sense_fn(cfg, device=device)
 
     cursor = (
         StreamCursor.load(args.cursor)

@@ -9,7 +9,8 @@
 //
 // Contract (see ops/extract.py for the wrapper that checks it):
 //   rr, ri    (n,)        float32, contiguous
-//   offsets   (k,)        int64; each is clipped to [0, max(n - wlen, 0)]
+//   offsets   (k,)        int32 or int64, as the caller holds them; each is
+//                         clipped to [0, max(n - wlen, 0)]
 //   out_r/i   (k, wlen)   float32, row-major; where n < wlen the samples
 //                         past n are 0, as the reference's fallback pads
 //
@@ -34,9 +35,11 @@ constexpr int kThreads = 256;
 constexpr int kPerThread = 4;
 constexpr int kChunk = kThreads * kPerThread;
 
+// Offset: int32_t or int64_t, the offsets as the caller holds them.
+template <typename Offset>
 __global__ void __launch_bounds__(kThreads)
 extract_windows_kernel(const float* __restrict__ rr, const float* __restrict__ ri,
-                       const int64_t* __restrict__ offsets, float* __restrict__ out_r,
+                       const Offset* __restrict__ offsets, float* __restrict__ out_r,
                        float* __restrict__ out_i, int64_t n, int wlen) {
   const int64_t w = blockIdx.x;
   const int64_t hi = n > wlen ? n - wlen : 0;
@@ -56,17 +59,28 @@ extract_windows_kernel(const float* __restrict__ rr, const float* __restrict__ r
   }
 }
 
+template <typename Offset>
+void launch(const void* rr, const void* ri, const void* offsets, void* out_r, void* out_i,
+            long long n, int k, int wlen, void* stream) {
+  const dim3 grid(static_cast<unsigned>(k), static_cast<unsigned>((wlen + kChunk - 1) / kChunk));
+  extract_windows_kernel<Offset><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rr), static_cast<const float*>(ri),
+      static_cast<const Offset*>(offsets), static_cast<float*>(out_r),
+      static_cast<float*>(out_i), static_cast<int64_t>(n), wlen);
+}
+
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).  The
-// wrapper launches nothing when k or wlen is 0.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// `offsets_i32` says which integer the offsets are.  The wrapper launches
+// nothing when k or wlen is 0.
 extern "C" int crn_extract_windows(const void* rr, const void* ri, const void* offsets,
-                                   void* out_r, void* out_i, long long n, int k, int wlen,
-                                   void* stream) {
-  const dim3 grid(static_cast<unsigned>(k), static_cast<unsigned>((wlen + kChunk - 1) / kChunk));
-  extract_windows_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rr), static_cast<const float*>(ri),
-      static_cast<const int64_t*>(offsets), static_cast<float*>(out_r),
-      static_cast<float*>(out_i), static_cast<int64_t>(n), wlen);
+                                   int offsets_i32, void* out_r, void* out_i, long long n, int k,
+                                   int wlen, void* stream) {
+  if (offsets_i32) {
+    launch<int32_t>(rr, ri, offsets, out_r, out_i, n, k, wlen, stream);
+  } else {
+    launch<int64_t>(rr, ri, offsets, out_r, out_i, n, k, wlen, stream);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,12 +5,12 @@
 // Replaces the Pallas TPU kernel cognitive_radio_network_tpu/ops/fused_sense_ct.py
 // (function _kernel), which factors the DFT as 4 x 128 so the 128-point
 // stage lands on the TPU's matrix unit.  This kernel keeps what that one
-// computes, not how: the same outputs, in natural bin order, from a radix-2
-// FFT in shared memory.
+// computes, not how: the same outputs, in natural bin order, from an FFT
+// that lives in registers.
 //
 // Contract (see ops/fused_sense_ct.py for the wrapper that checks it):
-//   xr, xi  (C*A, 512) float32 or bfloat16, row-major, contiguous, 16-byte aligned
-//   tw      (2, 256)   float32: cos and sin of -2*pi*k/512, built in float64
+//   xr, xi  (C*A, 512) float32 or bfloat16, row-major, contiguous
+//   tw      (2, 512)   float32: cos and sin of -2*pi*k/512, built in float64
 //   band    (512, 4)   float32 0/1 indicator, natural bin order
 //   avg     (C, 512)   float32 out: sum_a |X_a[k]| / A
 //   feats   (C, 4)     float32 out: (sum_k band[k, j] * avg[k])^2
@@ -20,23 +20,42 @@
 // An f32 FFT meets the bounds of all three rungs of the reference's ladder.
 //
 // What bounds it: per sample the kernel reads 8 bytes (f32) or 4 bytes
-// (bf16) from device memory and does about 45 flops (9 radix-2 stages of
-// 5 flops per sample, then the magnitude), about 6 flops per byte, far
-// below the card's compute-to-bandwidth ratio.  It is bound by device-memory
-// bandwidth.  The design therefore reads each sample once with 16-byte
-// vector loads, keeps the FFT, the magnitude, the mean and the band sums in
-// shared memory and registers, and writes only avg and feats.  The next
-// row's loads are issued before the current row's FFT so their latency
-// overlaps the shared-memory work.
+// (bf16) from device memory and does about 50 flops, about 6 flops per byte,
+// far below the card's compute-to-bandwidth ratio: device-memory bandwidth
+// bounds it, and the instruction rate comes second (at the memory bound an SM
+// has about 290 clocks per row, and a row is about 850 warp instructions).
+// The design therefore keeps a row's FFT in registers, touches shared memory
+// once per row, and keeps the next row's loads in flight while the current
+// row computes.  Measured on an H100 80GB HBM3 at 700 W, C = 4096 f32: with
+// the arithmetic taken out the loads alone take 0.068 ms, the whole kernel
+// 0.076-0.077 ms: all but about 0.01 ms of the arithmetic hides under the loads.
 //
-// Layout: one thread block per cycle, 128 threads.  Thread t loads samples
-// 4t..4t+3 of a row (a float4, or 8 bytes of bf16) and stores them at their
-// bit-reversed positions; 9 decimation-in-time stages of 256 butterflies
-// follow, two per thread; thread t then owns bins t, t+128, t+256, t+384,
-// whose |X| it accumulates in registers over the A rows.  The grid has
-// exactly C blocks, so no cycle is padded and no block is partial.  The
-// magnitude, the mean and the band sums are those of sense_epilogue.cuh,
-// shared with the dense-DFT kernel (fused_sense.cu).
+// The FFT: 512 = 16 x 32, and a warp owns a row.
+//   pass 1  lane n2 holds x[32 n1 + n2], n1 = 0..15 (16 coalesced loads per
+//           plane), and runs a 16-point FFT over n1 in its registers;
+//   twiddle z[k1][n2] = y[k1][n2] * W_512^(n2 k1), the lane's 15 factors held
+//           in registers for the kernel's lifetime;
+//   exchange the one trip through shared memory: lane n2 stores z[k1][n2] at
+//           row k1 of a (16, 33) float2 tile (pitch 33: stores and loads are
+//           conflict-free), and lane L = k1 + 16 p reads row k1 back;
+//   pass 2  the 32-point DFT over n2 as 2 x 16, decimated in frequency: lane
+//           (k1, p) forms v[b] = z[k1][b] + (-1)^p z[k1][b + 16], turns the
+//           odd half by W_32^b, and runs a 16-point FFT over b; its output
+//           k2' is bin k1 + 16 (2 k2' + p) = L + 32 k2'.
+// So lane L ends with bins L, L + 32, ..., L + 480 of every row, in natural
+// order, and adds their magnitudes over its rows in registers.
+//
+// Layout: a block of 128 threads (4 warps) finishes one cycle at a time and
+// walks over cycles blockIdx.x, blockIdx.x + gridDim.x, ...  Within a cycle
+// the rows a = r, r + 4, r + 8, ... form class r; a warp takes one class and
+// the classes rotate over the warps from cycle to cycle, so that at A = 10
+// (classes of 3, 3, 2, 2 rows) every scheduler carries the same load.  A
+// warp needs only __syncwarp() around its exchange.  The block meets twice
+// per cycle: the four class sums go through shared memory and are added in
+// class order (so a cycle's bits do not depend on where it ran), then 128
+// threads finish the cycle in sense_epilogue.cuh, shared with the dense-DFT
+// kernel (fused_sense.cu): thread t owns bins t, t + 128, t + 256, t + 384.
+// No atomics: results are the same from run to run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,111 +65,255 @@
 namespace {
 
 constexpr int kN = crn::kSenseN;
-constexpr int kLog2N = 9;
 constexpr int kThreads = crn::kSenseThreads;
-constexpr int kBins = crn::kSenseBins;        // bins (and samples) per thread
-constexpr int kButterflies = kN / 2 / kThreads;  // butterflies per thread per stage
+constexpr int kWarps = kThreads / 32;  // also the number of row classes
+constexpr int kBins = crn::kSenseBins;
 constexpr int kBands = crn::kSenseBands;
+constexpr int kR = 16;           // points per lane: the radix of both passes
+constexpr int kPitch = 33;       // float2 per row of the exchange tile
+// Resident blocks per SM the register budget is held to.  Measured on an
+// H100 80GB HBM3 at 700 W, C = 4096 f32: 3 blocks (167 registers, no spills)
+// are the fastest; 2 take 1.3 times as long, and 4 (128 registers, 164 bytes
+// spilled) 1.4 times.
+constexpr int kBlocksPerSm = 3;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// cos and sin of -2*pi*e/32, e = 0..31: W_32^e, and W_16^e = W_32^(2e)
+__constant__ float kW32[32][2] = {
+    {1.0f, 0.0f},  // 0
+    {0.980785251f, -0.195090324f},  // 1
+    {0.923879504f, -0.382683426f},  // 2
+    {0.831469595f, -0.555570245f},  // 3
+    {0.707106769f, -0.707106769f},  // 4
+    {0.555570245f, -0.831469595f},  // 5
+    {0.382683426f, -0.923879504f},  // 6
+    {0.195090324f, -0.980785251f},  // 7
+    {0.0f, -1.0f},  // 8
+    {-0.195090324f, -0.980785251f},  // 9
+    {-0.382683426f, -0.923879504f},  // 10
+    {-0.555570245f, -0.831469595f},  // 11
+    {-0.707106769f, -0.707106769f},  // 12
+    {-0.831469595f, -0.555570245f},  // 13
+    {-0.923879504f, -0.382683426f},  // 14
+    {-0.980785251f, -0.195090324f},  // 15
+    {-1.0f, 0.0f},  // 16
+    {-0.980785251f, 0.195090324f},  // 17
+    {-0.923879504f, 0.382683426f},  // 18
+    {-0.831469595f, 0.555570245f},  // 19
+    {-0.707106769f, 0.707106769f},  // 20
+    {-0.555570245f, 0.831469595f},  // 21
+    {-0.382683426f, 0.923879504f},  // 22
+    {-0.195090324f, 0.980785251f},  // 23
+    {0.0f, 1.0f},  // 24
+    {0.195090324f, 0.980785251f},  // 25
+    {0.382683426f, 0.923879504f},  // 26
+    {0.555570245f, 0.831469595f},  // 27
+    {0.707106769f, 0.707106769f},  // 28
+    {0.831469595f, 0.555570245f},  // 29
+    {0.923879504f, 0.382683426f},  // 30
+    {0.980785251f, 0.195090324f},  // 31
+};
+
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+
+// A bf16 is the high half of an f32, so the upcast is exact: shift the bits
+// into place.
+__device__ __forceinline__ float load1(const uint16_t* p) {
+  return __uint_as_float(static_cast<uint32_t>(*p) << 16);
 }
 
-// Four bf16 values (8 bytes) -> float4.  A bf16 is the high half of an f32,
-// so the upcast is exact: shift the bits into place.
-__device__ __forceinline__ float4 load4(const uint16_t* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+// (r + i j) *= (c + s j)
+__device__ __forceinline__ void cmul(float& r, float& i, float c, float s) {
+  const float t = r * c - i * s;
+  i = r * s + i * c;
+  r = t;
 }
 
-__device__ __forceinline__ int bitrev(int n) {
-  return static_cast<int>(__brev(static_cast<unsigned>(n)) >> (32 - kLog2N));
+// Forward 4-point DFT in place, outputs in natural order (W_4 = -j).
+__device__ __forceinline__ void dft4(float& r0, float& i0, float& r1, float& i1, float& r2,
+                                     float& i2, float& r3, float& i3) {
+  const float s0r = r0 + r2, s0i = i0 + i2;
+  const float s1r = r0 - r2, s1i = i0 - i2;
+  const float s2r = r1 + r3, s2i = i1 + i3;
+  const float s3r = r1 - r3, s3i = i1 - i3;
+  r0 = s0r + s2r;
+  i0 = s0i + s2i;
+  r2 = s0r - s2r;
+  i2 = s0i - s2i;
+  r1 = s1r + s3i;  // s1 - j s3
+  i1 = s1i - s3r;
+  r3 = s1r - s3i;  // s1 + j s3
+  i3 = s1i + s3r;
+}
+
+// Forward 16-point FFT in registers, in and out in natural order, as 4 x 4:
+// n = 4 n1 + n2, k = k1 + 4 k2.  Every index is a compile-time constant once
+// the loops unroll, so the arrays stay in registers.
+__device__ __forceinline__ void fft16(float (&re)[kR], float (&im)[kR]) {
+#pragma unroll
+  for (int n2 = 0; n2 < 4; ++n2) {  // over n1: element n2 + 4 k1 <- t[n2][k1]
+    dft4(re[n2], im[n2], re[n2 + 4], im[n2 + 4], re[n2 + 8], im[n2 + 8], re[n2 + 12],
+         im[n2 + 12]);
+  }
+#pragma unroll
+  for (int n2 = 1; n2 < 4; ++n2) {
+#pragma unroll
+    for (int k1 = 1; k1 < 4; ++k1) {  // W_16^(n2 k1)
+      cmul(re[n2 + 4 * k1], im[n2 + 4 * k1], kW32[2 * n2 * k1][0], kW32[2 * n2 * k1][1]);
+    }
+  }
+#pragma unroll
+  for (int k1 = 0; k1 < 4; ++k1) {  // over n2: element 4 k1 + k2 <- X[k1 + 4 k2]
+    dft4(re[4 * k1], im[4 * k1], re[4 * k1 + 1], im[4 * k1 + 1], re[4 * k1 + 2], im[4 * k1 + 2],
+         re[4 * k1 + 3], im[4 * k1 + 3]);
+  }
+#pragma unroll
+  for (int k1 = 0; k1 < 4; ++k1) {  // transpose to natural order
+#pragma unroll
+    for (int k2 = k1 + 1; k2 < 4; ++k2) {
+      const float tr = re[4 * k1 + k2], ti = im[4 * k1 + k2];
+      re[4 * k1 + k2] = re[4 * k2 + k1];
+      im[4 * k1 + k2] = im[4 * k2 + k1];
+      re[4 * k2 + k1] = tr;
+      im[4 * k2 + k1] = ti;
+    }
+  }
+}
+
+// A warp's walk over its rows: in cycle number `it` of its block the warp
+// owns class (warp + it) mod 4, rows a = class, class + 4, ... of that cycle.
+struct RowCursor {
+  long long cycle;  // >= cycles: no row left
+  int it;
+  int a;
+};
+
+// Moves `c` from a row of the warp to the warp's next row, past cycles in
+// which the warp's class is empty (A < 4).
+__device__ __forceinline__ void next_row(RowCursor& c, int warp, int step, int cycles,
+                                         int averaging, int stride) {
+  c.a += step;
+  while (c.a >= averaging) {
+    c.cycle += stride;
+    ++c.it;
+    if (c.cycle >= cycles) return;
+    c.a = (warp + c.it) & (kWarps - 1);
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void load_row(const T* __restrict__ xr, const T* __restrict__ xi,
+                                         const RowCursor& c, int averaging, int lane,
+                                         float (&re)[kR], float (&im)[kR]) {
+  const size_t at = (static_cast<size_t>(c.cycle) * averaging + c.a) * kN + lane;
+#pragma unroll
+  for (int n1 = 0; n1 < kR; ++n1) {
+    re[n1] = load1(xr + at + 32 * n1);
+    im[n1] = load1(xi + at + 32 * n1);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 fused_sense_ct_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                       const float* __restrict__ tw, const float* __restrict__ band,
-                      float* __restrict__ avg, float* __restrict__ feats, int averaging) {
-  __shared__ float s_re[kN];
-  __shared__ float s_im[kN];
-  __shared__ float s_twr[kN / 2];
-  __shared__ float s_twi[kN / 2];
-  __shared__ float s_red[kThreads / 32][kBands];
+                      float* __restrict__ avg, float* __restrict__ feats, int cycles,
+                      int averaging) {
+  __shared__ float2 s_x[kWarps][kR * kPitch];  // one exchange tile per warp
+  __shared__ float s_class[kWarps][kN];        // a cycle's |X| sums, one row per class
+  __shared__ float s_red[kWarps][kBands];
 
   const int t = threadIdx.x;
-  const size_t cycle = blockIdx.x;
-  for (int k = t; k < kN / 2; k += kThreads) {
-    s_twr[k] = tw[k];
-    s_twi[k] = tw[kN / 2 + k];
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int stride = gridDim.x;
+
+  // the lane's pass-1 twiddles W_512^(lane k1), loaded once
+  float twr[kR], twi[kR];
+#pragma unroll
+  for (int k1 = 1; k1 < kR; ++k1) {
+    twr[k1] = tw[lane * k1];
+    twi[k1] = tw[kN + lane * k1];
   }
 
-  const T* row_r = xr + cycle * averaging * kN + 4 * t;
-  const T* row_i = xi + cycle * averaging * kN + 4 * t;
-  float4 next_r = load4(row_r);
-  float4 next_i = load4(row_i);
-  float acc[kBins] = {0.f, 0.f, 0.f, 0.f};
+  float2* tile = s_x[warp];
+  const float2* tile_row = tile + (lane & 15) * kPitch;  // pass 2 reads row k1 = lane mod 16
+  const bool odd = (lane >> 4) != 0;                     // p: which half of the 32-point DFT
+  const float sign = odd ? -1.0f : 1.0f;
 
-  for (int a = 0; a < averaging; ++a) {
-    __syncthreads();  // the previous row's |X| reads (and the twiddle stores) are done
-    const float vr[4] = {next_r.x, next_r.y, next_r.z, next_r.w};
-    const float vi[4] = {next_i.x, next_i.y, next_i.z, next_i.w};
+  // the row in flight: loaded one row ahead of the row being transformed
+  RowCursor ahead{static_cast<long long>(blockIdx.x), 0, warp - kWarps};
+  next_row(ahead, warp, kWarps, cycles, averaging, stride);
+  float nr[kR], ni[kR];
+  if (ahead.cycle < cycles) load_row(xr, xi, ahead, averaging, lane, nr, ni);
+
+  int it = 0;
+  for (long long cycle = blockIdx.x; cycle < cycles; cycle += stride, ++it) {
+    const int cls = (warp + it) & (kWarps - 1);
+    float acc[kR];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = bitrev(4 * t + j);
-      s_re[r] = vr[j];
-      s_im[r] = vi[j];
-    }
-    if (a + 1 < averaging) {  // prefetch the next row during this row's FFT
-      row_r += kN;
-      row_i += kN;
-      next_r = load4(row_r);
-      next_i = load4(row_i);
-    }
+    for (int k = 0; k < kR; ++k) acc[k] = 0.0f;
+
+    for (int a = cls; a < averaging; a += kWarps) {
+      float re[kR], im[kR];
 #pragma unroll
-    for (int s = 0; s < kLog2N; ++s) {
-      __syncthreads();
-      const int half = 1 << s;
-#pragma unroll
-      for (int j = 0; j < kButterflies; ++j) {
-        const int b = t + j * kThreads;            // butterfly 0..255
-        const int pos = b & (half - 1);
-        const int i0 = ((b >> s) << (s + 1)) + pos;
-        const int i1 = i0 + half;
-        const int k = pos << (kLog2N - 1 - s);     // W_{2 half}^pos = W_512^k
-        const float wr = s_twr[k], wi = s_twi[k];
-        const float ur = s_re[i1], ui = s_im[i1];
-        const float pr = ur * wr - ui * wi;
-        const float pi = ur * wi + ui * wr;
-        const float qr = s_re[i0], qi = s_im[i0];
-        s_re[i0] = qr + pr;
-        s_im[i0] = qi + pi;
-        s_re[i1] = qr - pr;
-        s_im[i1] = qi - pi;
+      for (int n1 = 0; n1 < kR; ++n1) {
+        re[n1] = nr[n1];
+        im[n1] = ni[n1];
       }
+      next_row(ahead, warp, kWarps, cycles, averaging, stride);
+      if (ahead.cycle < cycles) load_row(xr, xi, ahead, averaging, lane, nr, ni);
+
+      fft16(re, im);  // pass 1, over n1
+#pragma unroll
+      for (int k1 = 1; k1 < kR; ++k1) cmul(re[k1], im[k1], twr[k1], twi[k1]);
+      __syncwarp();  // the previous row's reads of the tile are done
+#pragma unroll
+      for (int k1 = 0; k1 < kR; ++k1) tile[k1 * kPitch + lane] = make_float2(re[k1], im[k1]);
+      __syncwarp();
+#pragma unroll
+      for (int b = 0; b < kR; ++b) {
+        const float2 lo = tile_row[b], hi = tile_row[b + kR];
+        re[b] = fmaf(sign, hi.x, lo.x);
+        im[b] = fmaf(sign, hi.y, lo.y);
+      }
+      if (odd) {
+#pragma unroll
+        for (int b = 1; b < kR; ++b) cmul(re[b], im[b], kW32[b][0], kW32[b][1]);
+      }
+      fft16(re, im);  // pass 2, over b: re[k] is bin lane + 32 k
+#pragma unroll
+      for (int k = 0; k < kR; ++k) acc[k] += crn::magnitude(re[k], im[k]);
     }
+
+#pragma unroll
+    for (int k = 0; k < kR; ++k) s_class[cls][lane + 32 * k] = acc[k];
     __syncthreads();
+    float sum[kBins];
 #pragma unroll
     for (int j = 0; j < kBins; ++j) {
       const int k = t + j * kThreads;
-      acc[j] += crn::magnitude(s_re[k], s_im[k]);
+      sum[j] = ((s_class[0][k] + s_class[1][k]) + s_class[2][k]) + s_class[3][k];
     }
+    // its __syncthreads() falls after every read of s_class above, so the
+    // next cycle may write s_class again
+    crn::sense_epilogue(sum, averaging, band, avg + cycle * kN, feats + cycle * kBands, s_red);
   }
-
-  crn::sense_epilogue(acc, averaging, band, avg + cycle * kN, feats + cycle * kBands, s_red);
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).  The
-// caller checks shapes, types, contiguity and alignment; it allocates avg
-// and feats.
+// Launches on `stream` and returns the first CUDA error (0 on success).  The
+// caller checks shapes, types and contiguity; it allocates avg and feats.
 extern "C" int crn_fused_sense_ct(const void* xr, const void* xi, int is_bf16, const void* tw,
                                   const void* band, void* avg, void* feats, int cycles,
                                   int averaging, void* stream) {
   if (cycles <= 0 || averaging <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(cycles), block(kThreads);
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int resident = sms * kBlocksPerSm;
+  const dim3 grid(cycles < resident ? cycles : resident), block(kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* twf = static_cast<const float*>(tw);
   const float* bandf = static_cast<const float*>(band);
@@ -159,11 +322,11 @@ extern "C" int crn_fused_sense_ct(const void* xr, const void* xi, int is_bf16, c
   if (is_bf16) {
     fused_sense_ct_kernel<uint16_t><<<grid, block, 0, s>>>(
         static_cast<const uint16_t*>(xr), static_cast<const uint16_t*>(xi), twf, bandf, avgf,
-        featsf, averaging);
+        featsf, cycles, averaging);
   } else {
     fused_sense_ct_kernel<float><<<grid, block, 0, s>>>(
         static_cast<const float*>(xr), static_cast<const float*>(xi), twf, bandf, avgf, featsf,
-        averaging);
+        cycles, averaging);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,6 +20,7 @@ Python loop runs per cycle.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 
@@ -153,18 +154,41 @@ def sense_classify_trace(
 
 
 @functools.lru_cache(maxsize=64)
-def make_sense_fn(cfg: SenseConfig = SenseConfig(), *, with_trace: bool = False):
-    """A closure over the static config: ``fn(iq, params)``, or
-    ``fn(iq, params, tx0)`` with ``with_trace=True``.  Cached per config, as
-    in the reference, so engines with one config share one function."""
+def make_sense_fn(
+    cfg: SenseConfig = SenseConfig(), *, with_trace: bool = False, device="cuda"
+):
+    """A closure over the static config, bound to ``device`` (the card unless
+    the caller asks for the CPU; with no card the default raises at the first
+    call): ``fn(iq, params)``, or ``fn(iq, params, tx0)`` with
+    ``with_trace=True``.  Cached per config and device, as in the reference,
+    so engines with one config share one function.
+
+    ``iq`` is what :func:`sense_classify` takes, as tensors or numpy arrays;
+    what lies elsewhere is moved to ``device`` first.  ``params`` that lie
+    elsewhere are copied there on every call (the caller's module is not
+    moved): hand over parameters on ``device`` to pay nothing."""
+    device = torch.device(device)
+
+    def place(x):
+        return torch.as_tensor(x).to(device)
+
+    def placed(iq, params: OccupancyMLP):
+        iq = tuple(place(v) for v in iq) if isinstance(iq, (tuple, list)) else place(iq)
+        target = (iq[0] if isinstance(iq, tuple) else iq).device  # "cuda" alone: the current card
+        if next(params.parameters()).device != target:
+            params = copy.deepcopy(params).to(target)
+        return iq, params
+
     if with_trace:
 
         def fn(iq, params, tx0):
+            iq, params = placed(iq, params)
             return sense_classify_trace(iq, params, tx0, cfg)
 
         return fn
 
     def fn(iq, params):
+        iq, params = placed(iq, params)
         return sense_classify(iq, params, cfg)
 
     return fn

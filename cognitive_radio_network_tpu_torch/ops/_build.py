@@ -43,8 +43,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # xr, xi, is_bf16, tw, band, avg, feats, cycles, averaging, stream
     "crn_fused_sense_ct": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _P),
-    # rr, ri, offsets, out_r, out_i, n, k, wlen, stream
-    "crn_extract_windows": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
+    # rr, ri, offsets, offsets_i32, out_r, out_i, n, k, wlen, stream
+    "crn_extract_windows": (_P, _P, _P, _I, _P, _P, _L, _I, _I, _P),
     # xr, xi, taps, tw, hist_r, hist_i (null: none), out, cycles, block_len, stream
     "crn_fused_wideband": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _P),
     # xr, xi, fre, fim, band, feats, cycles, averaging, stream

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from cognitive_radio_network_tpu_torch.ops._launch import input_ptr, launch
 from cognitive_radio_network_tpu_torch.utils.device import on_cuda
 
 __all__ = ["extract_windows", "extract_windows_plain"]
@@ -52,51 +53,38 @@ def extract_windows(
     CPU tensors run :func:`extract_windows_plain`.  CUDA tensors launch the
     kernel on the current stream without synchronizing: the planes must be
     contiguous float32 on one card, the offsets int32 or int64 on the same
-    card (int32 is converted).  Each launch adds one to
+    card (the kernel reads either as it is).  Each launch adds one to
     ``extract_windows.launches``."""
     wlen = int(wlen)
     if not on_cuda(rr):
         return extract_windows_plain(rr, ri, offsets, wlen)
-    if ri.device != rr.device or offsets.device != rr.device:
-        raise ValueError(
-            f"rr on {rr.device}, ri on {ri.device}, offsets on {offsets.device}: one card"
-        )
+    dev = rr.device
     if rr.dtype != torch.float32 or ri.dtype != torch.float32:
         raise TypeError(f"kernel takes float32 planes, got {rr.dtype}, {ri.dtype}")
-    if offsets.dtype not in (torch.int32, torch.int64):
+    i32 = offsets.dtype == torch.int32
+    if not i32 and offsets.dtype != torch.int64:
         raise TypeError(f"offsets must be int32 or int64 integers, got {offsets.dtype}")
-    if rr.dim() != 1 or rr.shape != ri.shape or offsets.dim() != 1:
+    if rr.ndim != 1 or ri.ndim != 1 or offsets.ndim != 1 or rr.shape[0] != ri.shape[0]:
         raise ValueError(
             f"expected planes (N,) and offsets (K,), got {tuple(rr.shape)}, "
             f"{tuple(ri.shape)}, {tuple(offsets.shape)}"
         )
-    if not (rr.is_contiguous() and ri.is_contiguous()):
-        raise ValueError("kernel takes contiguous planes")
     if not 0 <= wlen <= _MAX_WLEN:
         raise ValueError(f"wlen {wlen} outside [0, {_MAX_WLEN}]")
+    if not offsets.is_contiguous():
+        offsets = offsets.contiguous()
+    p_rr = input_ptr(rr, "rr", dev)
+    p_ri = input_ptr(ri, "ri", dev)
+    p_offs = input_ptr(offsets, "offsets", dev)
     k = offsets.shape[0]
-    out_r = torch.empty((k, wlen), dtype=torch.float32, device=rr.device)
-    out_i = torch.empty((k, wlen), dtype=torch.float32, device=rr.device)
+    out_r = rr.new_empty((k, wlen))
+    out_i = rr.new_empty((k, wlen))
     if k == 0 or wlen == 0:
         return out_r, out_i
-    offs = offsets.to(torch.int64).contiguous()
-    from cognitive_radio_network_tpu_torch.ops import _build
-
-    lib = _build.load()
-    with torch.cuda.device(rr.device):
-        err = lib.crn_extract_windows(
-            rr.data_ptr(),
-            ri.data_ptr(),
-            offs.data_ptr(),
-            out_r.data_ptr(),
-            out_i.data_ptr(),
-            rr.shape[0],
-            k,
-            wlen,
-            torch.cuda.current_stream(rr.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"extract_windows kernel launch failed: CUDA error {err}")
+    launch(
+        "crn_extract_windows", dev,
+        p_rr, p_ri, p_offs, int(i32), out_r.data_ptr(), out_i.data_ptr(), rr.shape[0], k, wlen,
+    )
     extract_windows.launches += 1
     return out_r, out_i
 

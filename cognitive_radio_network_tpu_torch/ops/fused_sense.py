@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from cognitive_radio_network_tpu_torch.ops._launch import input_ptr, launch
 from cognitive_radio_network_tpu_torch.signal import bands as bands_mod
 from cognitive_radio_network_tpu_torch.signal.fft import _device_tables, _mm
 from cognitive_radio_network_tpu_torch.utils.device import on_cuda
@@ -100,37 +101,22 @@ def fused_band_features(
         return fused_band_features_plain(iq_planes, averaging=averaging, bands=bands)
     xr, xi, a = _rows(iq_planes, averaging)
     dev = xr.device
-    if xi.device != dev:
-        raise ValueError(f"xr on {dev} but xi on {xi.device}")
     if xr.dtype != torch.float32 or xi.dtype != torch.float32:
         raise TypeError(f"kernel takes float32 planes, got {xr.dtype}, {xi.dtype}")
-    if xr.data_ptr() % 16 or xi.data_ptr() % 16:
-        raise ValueError("kernel takes 16-byte aligned planes")
+    p_xr = input_ptr(xr, "xr", dev, aligned=True)
+    p_xi = input_ptr(xi, "xi", dev, aligned=True)
     band = bands_mod._device_band_matrix(bands, dev)
     if band.shape != (_N, 4):
         raise ValueError(f"kernel takes a ({_N}, 4) band matrix, got {tuple(band.shape)}")
     fre, fim = _device_tables("dft", 0, _N, dev)
     c = xr.shape[0] // a
-    feats = torch.empty((c, 4), dtype=torch.float32, device=dev)
+    feats = xr.new_empty((c, 4))
     if c == 0:
         return feats
-    from cognitive_radio_network_tpu_torch.ops import _build
-
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        err = lib.crn_fused_sense(
-            xr.data_ptr(),
-            xi.data_ptr(),
-            fre.data_ptr(),
-            fim.data_ptr(),
-            band.data_ptr(),
-            feats.data_ptr(),
-            c,
-            a,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_band_features kernel launch failed: CUDA error {err}")
+    launch(
+        "crn_fused_sense", dev,
+        p_xr, p_xi, fre.data_ptr(), fim.data_ptr(), band.data_ptr(), feats.data_ptr(), c, a,
+    )
     fused_band_features.launches += 1
     return feats
 

@@ -26,6 +26,7 @@ import functools
 import numpy as np
 import torch
 
+from cognitive_radio_network_tpu_torch.ops._launch import input_ptr, launch
 from cognitive_radio_network_tpu_torch.signal import bands as bands_mod
 from cognitive_radio_network_tpu_torch.signal.fft import PRECISIONS, spectrum_magnitude
 from cognitive_radio_network_tpu_torch.utils.device import on_cuda
@@ -36,13 +37,13 @@ _N = 512
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _rows(xr: torch.Tensor, xi: torch.Tensor, averaging: int):
-    """Check the planar input; return it buffers-flat (C*A, N) with A."""
+def _count_rows(xr: torch.Tensor, xi: torch.Tensor, averaging: int) -> tuple[int, int]:
+    """Check the planar input's shape; return its number of rows C*A, and A."""
     if xr.shape != xi.shape:
         raise ValueError(f"xr {tuple(xr.shape)} and xi {tuple(xi.shape)} differ in shape")
-    if xr.dim() == 3:  # (C, A, N): A comes from the shape, as in the reference
+    if xr.ndim == 3:  # (C, A, N): A comes from the shape, as in the reference
         averaging = xr.shape[1]
-    elif xr.dim() != 2:
+    elif xr.ndim != 2:
         raise ValueError(f"expected (C*A, N) or (C, A, N) planes, got {tuple(xr.shape)}")
     n = xr.shape[-1]
     if n != _N:
@@ -50,7 +51,13 @@ def _rows(xr: torch.Tensor, xi: torch.Tensor, averaging: int):
     rows = xr.numel() // n
     if averaging < 1 or rows % averaging:
         raise ValueError(f"rows {rows} not divisible by averaging {averaging}")
-    return xr.reshape(rows, n), xi.reshape(rows, n), averaging
+    return rows, averaging
+
+
+def _rows(xr: torch.Tensor, xi: torch.Tensor, averaging: int):
+    """Check the planar input; return it buffers-flat (C*A, N) with A."""
+    rows, averaging = _count_rows(xr, xi, averaging)
+    return xr.reshape(rows, _N), xi.reshape(rows, _N), averaging
 
 
 def fused_sense_ct_plain(
@@ -73,8 +80,9 @@ def fused_sense_ct_plain(
 
 @functools.lru_cache(maxsize=8)
 def _twiddles(device: torch.device) -> torch.Tensor:
-    """(2, 256) float32 cos/sin of -2*pi*k/512, built in float64."""
-    ang = -2.0 * np.pi * np.arange(_N // 2) / _N
+    """(2, 512) float32 cos/sin of -2*pi*k/512, built in float64: the whole
+    circle, since the kernel's lane n2 takes W_512^(n2 k1) for k1 up to 15."""
+    ang = -2.0 * np.pi * np.arange(_N) / _N
     return torch.from_numpy(np.stack([np.cos(ang), np.sin(ang)]).astype(np.float32)).to(device)
 
 
@@ -91,48 +99,32 @@ def fused_sense_ct(
     ``xr``, ``xi``: planar planes, buffers-flat (C*A, 512) (the layout the
     kernel reads) or (C, A, 512), float32 or bfloat16.  CPU tensors run
     :func:`fused_sense_ct_plain`.  CUDA tensors launch the kernel on the
-    current stream, without synchronizing; they must be contiguous and
-    16-byte aligned.  Each launch adds one to ``fused_sense_ct.launches``.
+    current stream, without synchronizing; they must be contiguous (the
+    kernel loads scalars: any alignment of the element type).  Each launch adds one to ``fused_sense_ct.launches``.
     """
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; expected one of {PRECISIONS}")
     if not on_cuda(xr):
         return fused_sense_ct_plain(xr, xi, averaging=averaging, bands=bands, precision=precision)
-    if xi.device != xr.device:
-        raise ValueError(f"xr on {xr.device} but xi on {xi.device}")
+    dev = xr.device
     if xr.dtype not in _KERNEL_DTYPES or xi.dtype != xr.dtype:
         raise TypeError(f"kernel takes float32 or bfloat16 planes, got {xr.dtype}, {xi.dtype}")
-    if not (xr.is_contiguous() and xi.is_contiguous()):
-        raise ValueError("kernel takes contiguous planes")
-    if xr.data_ptr() % 16 or xi.data_ptr() % 16:
-        raise ValueError("kernel takes 16-byte aligned planes")
-    xr, xi, a = _rows(xr, xi, averaging)
-    band = bands_mod._device_band_matrix(bands, xr.device)
+    p_xr = input_ptr(xr, "xr", dev)
+    p_xi = input_ptr(xi, "xi", dev)
+    rows, a = _count_rows(xr, xi, averaging)  # contiguous: (C, A, N) is (C*A, N) in memory
+    band = bands_mod._device_band_matrix(bands, dev)
     if band.shape != (_N, 4):
         raise ValueError(f"kernel takes a ({_N}, 4) band matrix, got {tuple(band.shape)}")
-    c = xr.shape[0] // a
-    avg = torch.empty((c, _N), dtype=torch.float32, device=xr.device)
-    feats = torch.empty((c, 4), dtype=torch.float32, device=xr.device)
+    c = rows // a
+    avg = xr.new_empty((c, _N), dtype=torch.float32)
+    feats = xr.new_empty((c, 4), dtype=torch.float32)
     if c == 0:
         return avg, feats
-    from cognitive_radio_network_tpu_torch.ops import _build
-
-    lib = _build.load()
-    with torch.cuda.device(xr.device):
-        err = lib.crn_fused_sense_ct(
-            xr.data_ptr(),
-            xi.data_ptr(),
-            int(xr.dtype == torch.bfloat16),
-            _twiddles(xr.device).data_ptr(),
-            band.data_ptr(),
-            avg.data_ptr(),
-            feats.data_ptr(),
-            c,
-            a,
-            torch.cuda.current_stream(xr.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_sense_ct kernel launch failed: CUDA error {err}")
+    launch(
+        "crn_fused_sense_ct", dev,
+        p_xr, p_xi, int(xr.dtype == torch.bfloat16), _twiddles(dev).data_ptr(), band.data_ptr(),
+        avg.data_ptr(), feats.data_ptr(), c, a,
+    )
     fused_sense_ct.launches += 1
     return avg, feats
 

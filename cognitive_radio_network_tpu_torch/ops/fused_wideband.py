@@ -34,6 +34,7 @@ import functools
 import numpy as np
 import torch
 
+from cognitive_radio_network_tpu_torch.ops._launch import input_ptr, launch
 from cognitive_radio_network_tpu_torch.signal.channelizer import _dft_tables
 from cognitive_radio_network_tpu_torch.signal.fft import PRECISIONS, _mm
 from cognitive_radio_network_tpu_torch.utils.device import on_cuda
@@ -147,16 +148,11 @@ def _twiddles(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.stack([np.cos(ang), np.sin(ang)]).astype(np.float32)).to(device)
 
 
-def _kernel_plane(x: torch.Tensor, what: str, device: torch.device) -> torch.Tensor:
-    if x.device != device:
-        raise ValueError(f"{what} on {x.device} but xr on {device}: one card")
+def _kernel_plane(x: torch.Tensor, what: str, device: torch.device) -> int:
+    """The address of float32 kernel input ``x`` after its checks."""
     if x.dtype != torch.float32:
         raise TypeError(f"kernel takes float32 {what}, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError(f"kernel takes contiguous {what}")
-    if x.data_ptr() % 16:
-        raise ValueError(f"kernel takes 16-byte aligned {what}")
-    return x
+    return input_ptr(x, what, device, aligned=True)
 
 
 def wideband_energy_fused(
@@ -192,34 +188,21 @@ def wideband_energy_fused(
     dev = xr.device
     taps = torch.as_tensor(taps, dtype=torch.float32, device=dev)
     t_total = _check(xr, xi, taps, cfg, initial_history)
-    _kernel_plane(xr, "xr", dev)
-    _kernel_plane(xi, "xi", dev)
+    p_xr = _kernel_plane(xr, "xr", dev)
+    p_xi = _kernel_plane(xi, "xi", dev)
     taps = taps.contiguous()
-    hist = [None, None]
+    hist = (None, None)
     if initial_history is not None:
-        hist = [_kernel_plane(h, "initial_history", dev) for h in initial_history]
+        hist = tuple(_kernel_plane(h, "initial_history", dev) for h in initial_history)
     c = t_total // cfg.block_len
-    out = torch.empty((c, _M), dtype=torch.float32, device=dev)
+    out = xr.new_empty((c, _M))
     if c == 0:
         return out
-    from cognitive_radio_network_tpu_torch.ops import _build
-
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        err = lib.crn_fused_wideband(
-            xr.data_ptr(),
-            xi.data_ptr(),
-            taps.data_ptr(),
-            _twiddles(dev).data_ptr(),
-            None if hist[0] is None else hist[0].data_ptr(),
-            None if hist[1] is None else hist[1].data_ptr(),
-            out.data_ptr(),
-            c,
-            cfg.block_len,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"wideband_energy_fused kernel launch failed: CUDA error {err}")
+    launch(
+        "crn_fused_wideband", dev,
+        p_xr, p_xi, taps.data_ptr(), _twiddles(dev).data_ptr(), hist[0], hist[1], out.data_ptr(),
+        c, cfg.block_len,
+    )
     wideband_energy_fused.launches += 1
     return out
 

@@ -284,13 +284,15 @@ class OFDMFrameGen:
         payloads: np.ndarray,
         *,
         as_planes: bool = False,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> torch.Tensor:
         """Batched frames: headers (B, 8), payloads (B, P) -> IQ (B, frame_len).
 
         Returns complex64 (B, frame_len) or float32 planes (B, frame_len, 2),
-        on ``device``.  CRC/FEC coding runs on the host; modulation, the
-        IFFT, the cyclic prefix and the taper run on ``device``.
+        on ``device``: the card unless the caller asks for the CPU (with no
+        card the default raises).  CRC/FEC coding runs on the host;
+        modulation, the IFFT, the cyclic prefix and the taper run on
+        ``device``.
         """
         device = torch.device(device)
         headers = np.atleast_2d(np.asarray(headers, np.uint8))

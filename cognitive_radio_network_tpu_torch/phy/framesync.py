@@ -74,11 +74,12 @@ class OFDMFrameSync:
 
     Instances are cheap: the generator comes from the process-wide
     :func:`gen_for` cache, and device constants are cached per device.
-    ``device`` is where host inputs (numpy arrays, CPU tensors) are moved;
-    CUDA tensors are processed where they lie."""
+    ``device`` is where host inputs (numpy arrays, CPU tensors) are moved:
+    the card unless the caller asks for the CPU, and with no card the first
+    such input raises.  CUDA tensors are processed where they lie."""
 
     def __init__(self, cfg: OFDMFrameConfig, payload_len: int,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.cfg = cfg
         self.payload_len = payload_len
         self.gen = gen_for(cfg, payload_len)  # shares sizing/preambles

@@ -77,8 +77,9 @@ def _constellation_on(scheme: str, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_constellation_np(scheme)).to(device)
 
 
-def constellation(scheme: str, device: torch.device | str = "cpu") -> torch.Tensor:
-    """The scheme's points, complex64 (2**bps,), indexed by symbol value."""
+def constellation(scheme: str, device: torch.device | str = "cuda") -> torch.Tensor:
+    """The scheme's points, complex64 (2**bps,), indexed by symbol value, on
+    ``device`` (the card unless the caller asks for the CPU)."""
     return _constellation_on(scheme, torch.device(device))
 
 

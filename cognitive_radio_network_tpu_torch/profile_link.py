@@ -138,12 +138,12 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     hdrs = rng.integers(0, 256, (FRAMES, 8)).astype(np.uint8)
     pays = rng.integers(0, 256, (FRAMES, PAYLOAD)).astype(np.uint8)
-    frames = gen.assemble(hdrs, pays, as_planes=True, device=dev)
+    frames = gen.assemble(hdrs, pays, as_planes=True)  # on the card, the default device
     block = torch.cat([frames, torch.zeros((FRAMES, GAP, 2), device=dev)], dim=1).reshape(-1, 2)
     rr, ri = block[:, 0].contiguous(), block[:, 1].contiguous()
     n = rr.shape[0]
     nvalid = torch.tensor(n, device=dev)
-    rxfn = OFDMFrameSync(cfg, PAYLOAD, device=dev).rx_block_fn(k=FRAMES)
+    rxfn = OFDMFrameSync(cfg, PAYLOAD).rx_block_fn(k=FRAMES)
     _, _, _, out, ok = rxfn(rr, ri, nvalid)
     if int(ok.sum()) != FRAMES or not bool(out["pay_ok"].all()):
         raise AssertionError(f"{int(ok.sum())}/{FRAMES} frames decoded")

@@ -62,6 +62,24 @@ def test_kernel_matches_plain_f32(cycles):
     torch.testing.assert_close(feats, feats_p, rtol=1e-4, atol=0.0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("averaging", [1, 3, 10])
+@pytest.mark.parametrize("cycles", [1, 5, 133, 4096])
+def test_kernel_any_cycles_and_averaging_same_from_run_to_run(cycles, averaging, dtype):
+    """Any C >= 1 and any A: rows that fill no whole class of four, cycles
+    that fill no whole wave of blocks.  bf16 input is upcast exactly, so it is
+    held to the plain version on the same bf16 values at the f32 bounds."""
+    xr, xi = (v.to(dtype) for v in _planes(cycles, seed=cycles + averaging, a=averaging))
+    avg, feats = fused_sense_ct(xr, xi, averaging=averaging)
+    again = fused_sense_ct(xr, xi, averaging=averaging)
+    avg_p, feats_p = fused_sense_ct_plain(xr, xi, averaging=averaging)
+    torch.cuda.synchronize()
+    assert avg.shape == (cycles, 512) and feats.shape == (cycles, 4)
+    assert torch.equal(avg, again[0]) and torch.equal(feats, again[1])
+    torch.testing.assert_close(avg, avg_p, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(feats, feats_p, rtol=1e-4, atol=0.0)
+
+
 def test_kernel_bf16_input():
     xr, xi = _planes(256, seed=1)
     _, want = fused_sense_ct_plain(xr, xi)
@@ -101,9 +119,17 @@ def test_main_path_launches_kernel_and_matches_cpu():
     before = fused_sense_ct.launches
     res = fn((xr, xi), reference_weights(device="cuda"))
     assert fused_sense_ct.launches == before + 1
-    cpu = fn((xr.cpu(), xi.cpu()), reference_weights())
+    cpu = make_sense_fn(SenseConfig(), device="cpu")((xr.cpu(), xi.cpu()), reference_weights())
+    assert cpu["decision"].device.type == "cpu"
     assert torch.equal(res["decision"].cpu(), cpu["decision"])
     torch.testing.assert_close(res["features"].cpu(), cpu["features"], rtol=1e-4, atol=0.0)
+    # host input and host parameters go to the card by default, and launch the kernel
+    params = reference_weights()
+    host = fn((xr.cpu().numpy(), xi.cpu().numpy()), params)
+    assert fused_sense_ct.launches == before + 2
+    assert host["decision"].device.type == "cuda" and params.w1.device.type == "cpu"
+    assert torch.equal(host["decision"], res["decision"])
+    assert torch.equal(host["features"], res["features"])
 
 
 LINK_N = 1_265_664  # 256 default-config frames of 4864 samples with 80-sample gaps
@@ -131,6 +157,7 @@ def test_extract_kernel_equals_plain(n, k, wlen):
         want = extract_windows_plain(rr, ri, o, wlen)
         torch.cuda.synchronize()
         assert got[0].shape == (k, wlen)
+        assert got[0].is_contiguous() and got[1].is_contiguous()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -167,6 +194,12 @@ def test_link_on_card_launches_kernel_and_matches_cpu():
     assert (out["payloads"].cpu()[order].numpy() == payloads).all()
     cpu = sync.rx_block_fn(k=4)(rr.cpu(), ri.cpu(), rr.shape[0])
     assert torch.equal(cpu[0].sort().values, bests.cpu().sort().values)
+    # host input goes to the card by default: numpy frames decode through the kernel
+    assert sync.device.type == "cuda" and gen.assemble(headers, payloads).device.type == "cuda"
+    before = extract_windows.launches
+    got = sync.receive_block(block.cpu().numpy(), k=4)
+    assert extract_windows.launches == before + 2
+    assert [f["offset"] for f in got] == [i * (gen.frame_len + 80) for i in range(4)]
 
 
 @pytest.mark.parametrize("form", ["complex", "planes", "planar-views"])

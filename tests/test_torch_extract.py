@@ -64,3 +64,21 @@ def test_wrapper_on_cpu_runs_plain_version(rng, dtype):
     assert extract_windows.launches == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name", sorted(_CASES))
+def test_int32_and_int64_offsets_give_equal_contiguous_rows(rng, name):
+    """The offsets' integer type changes nothing, and each returned plane is
+    a contiguous (K, wlen) tensor, whichever path made it."""
+    n, wlen, offs = _CASES[name]
+    if offs == "random":
+        offs = rng.integers(0, n - wlen, 13)
+    rr, ri, offs, wlen = _case(rng, n, wlen, offs)
+    rr, ri, offs = torch.from_numpy(rr), torch.from_numpy(ri), torch.from_numpy(offs)
+    for fn in (extract_windows, extract_windows_plain):
+        a = fn(rr, ri, offs.to(torch.int32), wlen)
+        b = fn(rr, ri, offs.to(torch.int64), wlen)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+            assert x.shape == (len(offs), wlen)
+            assert x.is_contiguous() and y.is_contiguous()

@@ -36,7 +36,7 @@ def _pair(payload_len, **kw):
     """(port gen, port sync, JAX gen, JAX sync) for one config."""
     return (
         OFDMFrameGen(OFDMFrameConfig(**kw), payload_len),
-        OFDMFrameSync(OFDMFrameConfig(**kw), payload_len),
+        OFDMFrameSync(OFDMFrameConfig(**kw), payload_len, device="cpu"),
         JGen(JConfig(**kw), payload_len),
         JSync(JConfig(**kw), payload_len),
     )
@@ -106,12 +106,12 @@ _ASSEMBLE = {
 def test_assemble_matches_jax(rng, name):
     gen, _, jgen, _ = _pair(40, **_ASSEMBLE[name])
     headers, payloads = _frames(rng, 3, 40)
-    planes = gen.assemble(headers, payloads, as_planes=True)
+    planes = gen.assemble(headers, payloads, as_planes=True, device="cpu")
     want = np.asarray(jgen.assemble(headers, payloads, as_planes=True))
     assert planes.shape == want.shape == (3, gen.frame_len, 2)
     assert planes.dtype == torch.float32
     np.testing.assert_allclose(planes.numpy(), want, rtol=0, atol=1e-5)
-    iq = gen.assemble(headers, payloads)
+    iq = gen.assemble(headers, payloads, device="cpu")
     assert iq.dtype == torch.complex64
     np.testing.assert_allclose(iq.numpy(), np.asarray(jgen.assemble(headers, payloads)), atol=1e-5)
 
@@ -440,6 +440,38 @@ def test_detect_near_block_end_matches_jax(rng, lead, tail):
     assert int(best) == int(jbest)
     assert abs(float(peak) - float(jpeak)) <= 1e-5
     assert abs(float(cfo) - float(jcfo)) <= 1e-6
+
+
+def test_link_entry_points_default_to_the_card(rng):
+    """OFDMFrameSync, assemble and constellation name the card by default and
+    raise where there is none; device="cpu" decodes on the CPU as before."""
+    import inspect
+
+    from cognitive_radio_network_tpu_torch.phy import modem
+
+    assert inspect.signature(OFDMFrameSync.__init__).parameters["device"].default == "cuda"
+    assert inspect.signature(OFDMFrameGen.assemble).parameters["device"].default == "cuda"
+    assert inspect.signature(modem.constellation).parameters["device"].default == "cuda"
+    cfg = OFDMFrameConfig()
+    gen = OFDMFrameGen(cfg, 32)
+    assert OFDMFrameSync(cfg, 32).device.type == "cuda"
+    headers, payloads = _frames(rng, 2, 32)
+    iq = gen.assemble(headers, payloads, device="cpu")
+    assert iq.device.type == "cpu"
+    stats, hdr, pay = OFDMFrameSync(cfg, 32, device="cpu").demod_aligned(iq.numpy())
+    np.testing.assert_array_equal(hdr, headers)
+    np.testing.assert_array_equal(pay, payloads)
+    assert all(s.payload_valid for s in stats)
+    if torch.cuda.is_available():
+        return  # the defaults then run; tests/test_torch_cuda_kernels.py drives them
+    with pytest.raises((RuntimeError, AssertionError)):
+        gen.assemble(headers, payloads)
+    with pytest.raises((RuntimeError, AssertionError)):
+        OFDMFrameSync(cfg, 32).demod_aligned(iq.numpy())
+    with pytest.raises((RuntimeError, AssertionError)):
+        OFDMFrameSync(cfg, 32).receive_block(iq.reshape(-1))
+    with pytest.raises((RuntimeError, AssertionError)):
+        modem.constellation("qam4")
 
 
 def test_profile_stage_attribution():

@@ -161,7 +161,7 @@ def test_fec_tables_equal(table):
 
 @pytest.mark.parametrize("scheme", modem.SCHEMES)
 def test_modem_matches_jax(rng, scheme):
-    pts = _np(modem.constellation(scheme))
+    pts = _np(modem.constellation(scheme, device="cpu"))
     np.testing.assert_array_equal(pts, np.asarray(jmodem.constellation(scheme)))
     assert modem.bits_per_symbol(scheme) == jmodem.bits_per_symbol(scheme)
     syms = rng.integers(0, len(pts), (4, 50))

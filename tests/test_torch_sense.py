@@ -114,7 +114,7 @@ def test_log1p_checkpoint_from_jax(scene, rng, tmp_path):
     jcfg = dataclasses.replace(JaxSenseConfig(), feature_transform="log1p")
     cfg = dataclasses.replace(SenseConfig(), feature_transform="log1p")
     jres, _ = jax_trace(jnp.asarray(planes), params, 833e6, jcfg)
-    res = make_sense_fn(cfg)(_forms(planes)["planar"], mlp)
+    res = make_sense_fn(cfg, device="cpu")(_forms(planes)["planar"], mlp)
     np.testing.assert_allclose(res["outputs"].numpy(), np.asarray(jres["outputs"]), atol=1e-5)
     np.testing.assert_array_equal(res["decision"].numpy(), np.asarray(jres["decision"]))
 
@@ -150,5 +150,49 @@ def test_make_sense_fn_is_cached_per_config():
     cfg = SenseConfig()
     assert make_sense_fn(cfg) is make_sense_fn(SenseConfig())
     assert make_sense_fn(cfg, with_trace=True) is not make_sense_fn(cfg)
+    assert make_sense_fn(cfg, device="cpu") is make_sense_fn(SenseConfig(), device="cpu")
+    assert make_sense_fn(cfg, device="cpu") is not make_sense_fn(cfg)  # the device is in the key
     assert cfg.samples_per_cycle == 5120 and cfg.precision == "high"
     assert dataclasses.asdict(cfg).keys() == dataclasses.asdict(JaxSenseConfig()).keys()
+
+
+def test_entry_points_default_to_the_card(scene):
+    """make_sense_fn and make_wideband_fn name the card by default; with no
+    card the default raises instead of sensing on the CPU."""
+    import inspect
+
+    from cognitive_radio_network_tpu_torch.parallel import WidebandConfig, make_wideband_fn
+
+    assert inspect.signature(make_sense_fn).parameters["device"].default == "cuda"
+    assert inspect.signature(make_wideband_fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return  # the defaults then run; tests/test_torch_cuda_kernels.py drives them
+    _, planes = scene
+    with pytest.raises((RuntimeError, AssertionError)):
+        make_sense_fn(SenseConfig())(planes, reference_weights())
+    with pytest.raises((RuntimeError, AssertionError)):
+        make_wideband_fn(WidebandConfig())
+
+
+@pytest.mark.parametrize("form", ["numpy", "numpy-planar", "planar", "complex", "planes"])
+def test_make_sense_fn_on_cpu_takes_host_inputs(scene, form):
+    """device="cpu" gives sense_classify's results for numpy arrays, CPU
+    tensors and planar tuples, and leaves the caller's parameters alone."""
+    _, planes = scene
+    forms = _forms(planes)
+    forms["numpy"] = planes
+    forms["numpy-planar"] = tuple(v.numpy() for v in forms["planar"])
+    params = reference_weights()
+    want = sense_classify(forms["planes"], params)
+    got = make_sense_fn(SenseConfig(), device="cpu")(forms[form], params)
+    assert params.w1.device.type == "cpu"
+    for key in ("features", "outputs", "decision"):
+        assert got[key].device.type == "cpu"
+    np.testing.assert_array_equal(got["decision"].numpy(), want["decision"].numpy())
+    np.testing.assert_allclose(got["features"].numpy(), want["features"].numpy(), rtol=1e-5)
+    res, freq = make_sense_fn(SenseConfig(), with_trace=True, device="cpu")(
+        forms[form], params, 833e6
+    )
+    want_freq = _tx_freq_trace(want["decision"], 833e6, SenseConfig().channels_hz)
+    np.testing.assert_array_equal(res["decision"].numpy(), want["decision"].numpy())
+    np.testing.assert_array_equal(freq.numpy(), want_freq.numpy())
