@@ -53,17 +53,44 @@ one line; any failure raises, and the exit code is then non-zero.
    and the one-device ``make_sharded_apply`` with a seeded 4-5-1 network on a
    (4, T*64, 2) batch at T=65,536: one kernel launch per stream, and the
    batch's energy held to the packed plain path (``use_fused=False``).
-12. dense-DFT sense, kernel vs plain: ``fused_band_features`` against
-   ``fused_band_features_plain`` and against ``fused_sense_ct``'s features
-   (rtol 1e-4) at C=4096 and C=5; then the function once on phase 4's scene,
-   its features through the MLP and the decision rule: decisions must track
-   the PU channel as the main path's do.
+12. features-only sense, kernel vs plain: ``fused_band_features`` against
+   ``fused_band_features_plain`` (the dense four-matmul form, rtol 1e-4) and
+   against ``fused_sense_ct``'s features (rtol 1e-6: the same register FFT in
+   another kernel) at C=4096 and C=5, and equal from run to run; then the
+   function once on phase 4's scene, its features through the MLP and the
+   decision rule: decisions must track the PU channel as the main path's do.
 13. times: median of 3, plain and kernel in turns, for the wideband kernel and
    its plain version at T=524,288, for one ``make_wideband_fn`` call (CUDA
    events back to back; host clock per synchronized call; device operations,
    busy time and idle share from a profiler trace), for the batch of streams
-   through the kernel and through the packed path, and for the dense-DFT
-   kernel and its plain version at C=4096.
+   through the kernel and through the packed path, and for the features-only
+   sense kernel and its plain version at C=4096 (beside the 2.6950 ms its
+   dense-product predecessor took on this card at 700 W).
+14. resolve, kernel vs plain: ``resolve_candidates`` against
+   ``resolve_candidates_plain`` (``torch.equal``) on random candidate tables
+   and on the full-width stream's K=520 columns; then times: the kernel and
+   the plain version (a device-to-host round trip and a host loop).
+15. the adaptive gate (port of tests/tpu_gates.py::gate_adaptive_stream): two
+   configs (qam4/h128 64 bytes, qam16/none 48 bytes) in a 16,000-sample
+   stream, blocks of 2,048 with straddlers, through
+   ``StreamReceiver(cfg).process_device``: every placed frame within 2
+   samples, payloads equal.
+16. the three APIs (``process``, ``process_device``, ``feed_device``/``flush``)
+   on one random mixed-config stream: equal offsets, headers, payloads, and
+   equal to the CPU run; then a qam16/v27 stream through ``process_device``.
+17. the adaptive stream at full width (the reference bench's shape,
+   bench.py:324-374): 2,048 frames of 256 bytes alternating qam4/h128 and
+   qam16/none, gap 512, 4 blocks, ``max_frames_per_block`` 520,
+   ``fetch_group`` 8, ``feed_device(max_lag=18)`` + ``flush``: 2,048 frames,
+   payloads equal to those sent, mods alternating, all valid, exactly 4
+   extract launches and 1 resolve launch per step; ``extract_windows`` against
+   ``extract_windows_plain`` (``torch.equal``, and timed) on a step's own
+   buffer and K=520 candidates at each window length the step asks for (both
+   speculated configs' frames, the scan's header and refinement windows); then
+   times: MS/s and frames/s over 6 passes (median of 3), host ms per
+   ``feed_device`` call, synchronizing calls inside the dispatches (PyTorch's sync debug mode;
+   must be none), device operations, kernel launches and busy time per step
+   from a profiler trace, and the device's idle share of a pass.
 
 The line before the last is a JSON object with each kernel's launches on its
 path, error, times and bound (the least time the card could take: bytes moved
@@ -97,6 +124,12 @@ WIDE_SOURCE = "cognitive_radio_network_tpu_torch/csrc/fused_wideband.cu"
 WIDE_REPLACES = "cognitive_radio_network_tpu/ops/fused_wideband.py:91"
 DENSE_SOURCE = "cognitive_radio_network_tpu_torch/csrc/fused_sense.cu"
 DENSE_REPLACES = "cognitive_radio_network_tpu/ops/fused_sense.py:35"
+DENSE_PRODUCT_MS = 2.6950  # the kernel as a tiled dense product, C=4096, H100 80GB HBM3 at 700 W
+RESOLVE_SOURCE = "cognitive_radio_network_tpu_torch/csrc/resolve_candidates.cu"
+# no TPU kernel: the lax.scan of the reference's stream-step graph
+RESOLVE_REPLACES = "cognitive_radio_network_tpu/phy/framesync.py:900"
+STREAM_FRAMES, STREAM_PAYLOAD, STREAM_GAP = 2048, 256, 512  # bench.py:326-338
+STREAM_BLOCKS, STREAM_LAG, STREAM_GROUP, STREAM_PASSES = 4, 18, 8, 6  # bench.py:355-357, :390
 WIDE_T = 524_288  # per-channel times per dispatch of the reference's bench (bench.py:250-261)
 WIDE_ACTIVE = (3, 17, 40, 63)  # channels that carry a tone in the wide scene
 APPLY_BATCH, APPLY_T = 4, 65_536  # the batch of streams of the apply step
@@ -140,7 +173,7 @@ def reset_counts() -> None:
     from cognitive_radio_network_tpu_torch import ops
 
     for fn in (ops.fused_sense_ct, ops.extract_windows, ops.wideband_energy_fused,
-               ops.fused_band_features):
+               ops.fused_band_features, ops.resolve_candidates):
         fn.launches = 0
 
 
@@ -413,7 +446,7 @@ def wideband_energy_f64(xr, xi, taps, block_len, hist_r=None, hist_i=None):
 
 def wideband_and_dense_phases(dev, smi: str, sense_planar, pu_trace, params) -> list[dict]:
     """Phases 10-13: the wideband kernel against its plain version and the
-    float64 oracles, the wideband path at full width, the dense-DFT sense
+    float64 oracles, the wideband path at full width, the features-only sense
     kernel against its plain version and on the sense scene, and their times.
     Returns the two kernels' entries of the kernels line."""
     import numpy as np
@@ -575,7 +608,7 @@ def wideband_and_dense_phases(dev, smi: str, sense_planar, pu_trace, params) -> 
           f"launches) and occupied equal")
     del packed, by_kernel, probs
 
-    # 12. dense-DFT sense, kernel vs plain on the card
+    # 12. features-only sense, kernel vs plain on the card
     scfg = SenseConfig()
     a, n = scfg.averaging, scfg.fft_length
     dense_err = 0.0
@@ -586,14 +619,18 @@ def wideband_and_dense_phases(dev, smi: str, sense_planar, pu_trace, params) -> 
         got = fused_band_features(planes, averaging=a)
         want = fused_band_features_plain(planes, averaging=a)
         _, ct = fused_sense_ct(*planes, averaging=a)
+        again = fused_band_features(planes, averaging=a)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
-        torch.testing.assert_close(got, ct, rtol=1e-4, atol=0.0)
+        torch.testing.assert_close(got, ct, rtol=1e-6, atol=0.0)
+        if not torch.equal(got, again):
+            raise AssertionError(f"fused_band_features differs from run to run at C={c}")
         dense_err = max(dense_err, (got - want).abs().max().item())
         rel = ((got - want).abs() / want.abs()).max().item()
         rel_ct = ((got - ct).abs() / ct.abs()).max().item()
-        phase("dense-vs-plain", f"C={c}: feats max rel err {rel:.3e} vs the plain version, "
-              f"{rel_ct:.3e} vs fused_sense_ct (rtol 1e-4)")
+        phase("dense-vs-plain", f"C={c}: feats max rel err {rel:.3e} vs the dense plain version "
+              f"(rtol 1e-4), {rel_ct:.3e} vs fused_sense_ct (rtol 1e-6; equal bits: "
+              f"{torch.equal(got, ct)}); equal from run to run")
         if c == CYCLES:
             dense_inputs = planes
     # the function on the sense scene of phase 4, through the MLP and the decision rule
@@ -610,7 +647,7 @@ def wideband_and_dense_phases(dev, smi: str, sense_planar, pu_trace, params) -> 
         raise AssertionError(f"dense features: shape {tuple(feats.shape)} or non-finite values")
     hit = float((dec == pu_trace + 1).float().mean())
     if hit < 0.99:
-        raise AssertionError(f"dense path: decision == PU channel + 1 on only {hit:.4f} of cycles")
+        raise AssertionError(f"features path: decision == PU channel + 1 on only {hit:.4f} of cycles")
     phase("dense-path", f"fused_band_features on the {CYCLES}-cycle sense scene -> MLP -> "
           f"decision: kernel launches {dense_launches}; decision == PU+1 on {hit:.4f}")
 
@@ -694,19 +731,18 @@ def wideband_and_dense_phases(dev, smi: str, sense_planar, pu_trace, params) -> 
         return fused_band_features_plain((xr, xi), averaging=a)
 
     dk, dp, dk2, dp2 = turns(dense_kern, dense_plain, [dense_inputs])
-    # The bound is the function's: the planes read once and, per sample, the 9
-    # radix-2 stages of a 512-point FFT (5 flops each) and the magnitude, as
-    # for fused_sense_ct.  The dense product this kernel computes instead
-    # (8 n flops per sample) is the cost of its algorithm, printed beside it.
-    dense_bound, dense_by = bound(CYCLES * a * n * 8 + 2 * n * n * 4 + n * 16 + CYCLES * 16,
+    # The bound is the function's: the planes, the twiddle and band tables read
+    # once, the features written once and, per sample, the 9 radix-2 stages of
+    # a 512-point FFT (5 flops each) and the magnitude, as for fused_sense_ct
+    # less its spectrum.
+    dense_bound, dense_by = bound(CYCLES * a * n * 8 + n * 8 + n * 16 + CYCLES * 16,
                                   CYCLES * a * n * (5 * 9 + 3))
-    flops = 8 * CYCLES * a * n * n
-    phase("time", f"dense-DFT sense C={CYCLES}: kernel {dk:.4f} ms/dispatch "
-          f"(bound {dense_bound:.4f} ms by {dense_by}, so {dk / dense_bound:.1f}x its bound; its "
-          f"dense product is {flops / 1e9:.1f} GFLOP, {flops / FP32_FLOPS * 1e3:.4f} ms at 67 "
-          f"TFLOP/s: {flops / dk / 1e9:.1f} TFLOP/s f32, {flops / dk / 1e9 / 67:.1%} of the "
-          f"peak), plain {dp:.4f} ms/dispatch, median of 3; second turn kernel {dk2:.4f}, plain "
-          f"{dp2:.4f}; {smi}")
+    gbs = CYCLES * a * n * 8 / (dk * 1e-3) / 1e9
+    phase("time", f"features-only sense C={CYCLES}: kernel {dk:.4f} ms/dispatch "
+          f"({gbs:.0f} GB/s read, {gbs / 3350:.1%} of 3.35 TB/s; bound {dense_bound:.4f} ms by "
+          f"{dense_by}, so {dk / dense_bound:.2f}x its bound; as a dense product it took "
+          f"{DENSE_PRODUCT_MS} ms: {DENSE_PRODUCT_MS / dk:.1f}x), plain {dp:.4f} ms/dispatch, "
+          f"median of 3; second turn kernel {dk2:.4f}, plain {dp2:.4f}; {smi}")
     return [
         {
             "name": "wideband_energy_fused",
@@ -735,6 +771,420 @@ def wideband_and_dense_phases(dev, smi: str, sense_planar, pu_trace, params) -> 
             "library_ms": None,  # DFT + magnitude + mean + band sums: no single PyTorch call
         },
     ]
+
+
+def stream_phases(dev, smi: str) -> tuple[dict, dict]:
+    """Phases 14-17: the resolve kernel against its plain version, the
+    adaptive gate, the three streaming APIs, and the adaptive stream at full
+    width with its times.  Returns the resolve kernel's entry of the kernels
+    line and what the stream step showed of the extract kernel: its launches per
+    step, its error against the plain version on the step's own windows, and
+    its times and bound at the step's widest shape."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from cognitive_radio_network_tpu_torch.ops.extract import extract_windows, extract_windows_plain
+    from cognitive_radio_network_tpu_torch.ops.resolve import (
+        resolve_candidates,
+        resolve_candidates_plain,
+    )
+    from cognitive_radio_network_tpu_torch.phy import (
+        OFDMFrameConfig,
+        OFDMFrameGen,
+        StreamReceiver,
+    )
+    from cognitive_radio_network_tpu_torch.profile_link import stage_device_times
+
+    cfg_a = OFDMFrameConfig()
+    cfg_b = dataclasses.replace(cfg_a, mod_scheme="qam16", fec0="none")
+
+    resolve_err = 0.0
+
+    def equal_or_raise(got, want, what):
+        """Accept flags and meta ``torch.equal`` to the plain version's, or
+        raise; the error kept is the larger of the flags that differ and the
+        meta's largest difference."""
+        nonlocal resolve_err
+        err = max((got[0] != want[0]).sum().item(), (got[1] - want[1]).abs().max().item())
+        resolve_err = max(resolve_err, float(err))
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"resolve kernel differs from the plain version at {what}")
+
+    # 14a. resolve, kernel vs plain on random tables (the full-width columns follow in 17)
+    rng = np.random.default_rng(3)
+    for k in (1, 16, 256, 257, 520, 1500):
+        n_buf, prefix = 2_800_000, 304
+        offs = np.sort(rng.integers(0, n_buf + 3000, k))
+        cols = (offs, rng.uniform(0, 1, k).astype(np.float32), rng.uniform(0, 1, k) < 0.9,
+                rng.integers(prefix, 6000, k), np.array([int(rng.integers(0, n_buf))]))
+        cols = tuple(torch.from_numpy(c).to(dev) for c in cols)
+        got = resolve_candidates(*cols, 0.2, n_buf, prefix)
+        torch.cuda.synchronize()
+        equal_or_raise(got, resolve_candidates_plain(*cols, 0.2, n_buf, prefix), f"random K={k}")
+    phase("resolve-vs-plain", "random candidate tables, K in (1, 16, 256, 257, 520, 1500): "
+          "accept flags and meta torch.equal to the plain version")
+
+    def noise(rng, n, scale=0.003):
+        return (scale * (rng.standard_normal(n) + 1j * rng.standard_normal(n))).astype(np.complex64)
+
+    def planes(seg):
+        return (torch.from_numpy(seg.real.copy()).to(dev), torch.from_numpy(seg.imag.copy()).to(dev))
+
+    def place(stream, specs, rng, pos, gap):
+        """Frames of (config, payload bytes) in turn into ``stream``; returns
+        [(offset, payload, mod)]."""
+        placed = []
+        for cfg, plen in specs:
+            gen = OFDMFrameGen(cfg, plen)
+            if pos + gen.frame_len + 50 >= len(stream):
+                break
+            h = rng.integers(0, 256, (1, 8)).astype(np.uint8)
+            pay = rng.integers(0, 256, (1, plen)).astype(np.uint8)
+            iq = gen.assemble(h, pay)[0].cpu().numpy()  # assembled on the card
+            stream[pos : pos + len(iq)] += iq
+            placed.append((pos, pay[0], cfg.mod_scheme))
+            pos += len(iq) + (gap() if callable(gap) else gap)
+        return placed
+
+    def check_frames(frames, placed, what):
+        if len(frames) != len(placed):
+            raise AssertionError(f"{what}: {len(frames)} frames for {len(placed)} placed")
+        for fr, (off, pay, mod) in zip(frames, placed):
+            if abs(fr["offset"] - off) > 2 or not fr["stats"].payload_valid:
+                raise AssertionError(f"{what}: frame at {fr['offset']} for {off}, or a bad CRC")
+            if not np.array_equal(fr["payload"], pay) or fr["stats"].mod_scheme != mod:
+                raise AssertionError(f"{what}: payload or scheme differs at {off}")
+
+    def same_frames(a, b, what):
+        if [f["offset"] for f in a] != [f["offset"] for f in b]:
+            raise AssertionError(f"{what}: offsets differ")
+        for x, y in zip(a, b):
+            if not (np.array_equal(x["header"], y["header"])
+                    and np.array_equal(x["payload"], y["payload"])):
+                raise AssertionError(f"{what}: header or payload differs at {x['offset']}")
+
+    # 15. the adaptive gate (port of tests/tpu_gates.py::gate_adaptive_stream)
+    rng = np.random.default_rng(5)
+    n_gate = 16000
+    stream = noise(rng, n_gate)
+    placed = place(stream, [(cfg_a, 64), (cfg_b, 48)] * 3, rng, 60, 911)
+    rx = StreamReceiver(cfg_a, max_frames_per_block=8)  # on the card: its default
+    torch.cuda.synchronize()
+    reset_counts()
+    frames, steps = [], 0
+    for s0 in range(0, n_gate, 2048):  # blocks of 2048 -> straddlers
+        frames += rx.process_device(*planes(stream[s0 : s0 + 2048]))
+        steps += 1
+    check_frames(frames, placed, "adaptive gate")
+    if resolve_candidates.launches != steps or extract_windows.launches < 3 * steps:
+        raise AssertionError(
+            f"adaptive gate: {resolve_candidates.launches} resolve and "
+            f"{extract_windows.launches} extract launches in {steps} steps")
+    phase("adaptive-gate", f"{len(placed)} frames (qam4/h128 64 B, qam16/none 48 B) in "
+          f"{n_gate} samples, {steps} blocks of 2048 through StreamReceiver(cfg).process_device: "
+          f"every frame within 2 samples, payloads equal, CRCs good; resolve launches "
+          f"{resolve_candidates.launches}, extract launches {extract_windows.launches}")
+
+    # 16. the three APIs on one random mixed-config stream, and the CPU run
+    rng = np.random.default_rng(0)
+    n_mix = 40000
+    stream = noise(rng, n_mix, 0.004)
+    mods, fecs = ["qam4", "qam16", "bpsk"], ["h128", "none", "rep3"]
+    specs = [(dataclasses.replace(cfg_a, mod_scheme=mods[rng.integers(0, 3)],
+                                  fec0=fecs[rng.integers(0, 3)]), int(rng.integers(8, 120)))
+             for _ in range(40)]
+    placed = place(stream, specs, rng, int(rng.integers(0, 400)),
+                   lambda: int(rng.integers(300, 1200)))
+    blk = int(rng.integers(900, 4000))
+    rxs = {"process": StreamReceiver(cfg_a), "process_device": StreamReceiver(cfg_a),
+           "feed_device": StreamReceiver(cfg_a), "cpu": StreamReceiver(cfg_a, device="cpu")}
+    got = {key: [] for key in rxs}
+    for s0 in range(0, n_mix, blk):
+        seg = stream[s0 : s0 + blk]
+        got["process"] += rxs["process"].process(seg)
+        got["process_device"] += rxs["process_device"].process_device(*planes(seg))
+        got["feed_device"] += rxs["feed_device"].feed_device(
+            *planes(seg), max_lag=int(rng.integers(0, 5)))
+        got["cpu"] += rxs["cpu"].process(seg)
+    got["feed_device"] += rxs["feed_device"].flush()
+    check_frames(got["process"], placed, "three APIs, process")
+    for key in ("process_device", "feed_device", "cpu"):
+        same_frames(got[key], got["process"], f"three APIs, {key} vs process")
+    phase("three-apis", f"{len(placed)} frames of random configs (qam4/qam16/bpsk x "
+          f"h128/none/rep3, 8-119 byte payloads) in {n_mix} samples, blocks of {blk}: process, "
+          f"process_device, feed_device/flush (random lags) and the CPU run of process give "
+          f"equal offsets, headers and payloads, equal to those sent")
+    # a Viterbi-coded stream at a small size: right, slow, not timed
+    cfg_v = dataclasses.replace(cfg_a, mod_scheme="qam16", fec0="v27")
+    rng = np.random.default_rng(9)
+    stream = noise(rng, 9000)
+    placed = place(stream, [(cfg_a, 40), (cfg_v, 96)] * 2, rng, 300, 300)
+    rx = StreamReceiver(cfg_a, max_frames_per_block=8)
+    t0 = time.perf_counter()
+    frames = []
+    for s0 in range(0, len(stream), 3000):
+        frames += rx.process_device(*planes(stream[s0 : s0 + 3000]))
+    check_frames(frames, placed, "v27 stream")
+    phase("three-apis", f"{len(placed)} frames alternating qam4/h128 and qam16/v27 through "
+          f"process_device in 3 blocks: all intact in {time.perf_counter() - t0:.2f} s host time "
+          f"(first calls; the Viterbi loop is a launch per time step)")
+
+    # 17. the adaptive stream at full width (bench.py:324-374)
+    rng = np.random.default_rng(17)
+    hdrs = rng.integers(0, 256, (STREAM_FRAMES, 8)).astype(np.uint8)
+    pays = rng.integers(0, 256, (STREAM_FRAMES, STREAM_PAYLOAD)).astype(np.uint8)
+    t0 = time.perf_counter()
+    gen_a, gen_b = OFDMFrameGen(cfg_a, STREAM_PAYLOAD), OFDMFrameGen(cfg_b, STREAM_PAYLOAD)
+    fr_a = gen_a.assemble(hdrs[0::2], pays[0::2], as_planes=True)
+    fr_b = gen_b.assemble(hdrs[1::2], pays[1::2], as_planes=True)
+    gap = torch.zeros((STREAM_FRAMES // 2, STREAM_GAP, 2), device=dev)
+    pair = torch.cat([fr_a, gap, fr_b, gap], dim=1)  # frame a, gap, frame b, gap
+    pair_len = pair.shape[1]
+    whole = pair.reshape(-1, 2)
+    n_ad = whole.shape[0]
+    a_blk = n_ad // STREAM_BLOCKS
+    blocks = [(whole[i * a_blk : (i + 1) * a_blk, 0].contiguous(),
+               whole[i * a_blk : (i + 1) * a_blk, 1].contiguous()) for i in range(STREAM_BLOCKS)]
+    del fr_a, fr_b, gap, pair, whole
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    srx = StreamReceiver(cfg_a, max_frames_per_block=STREAM_FRAMES // STREAM_BLOCKS + 8)
+    srx.fetch_group = STREAM_GROUP
+    call_ms: list[float] = []
+
+    def adaptive_pass(passes: int):
+        out = []
+        for _ in range(passes):
+            for br, bi in blocks:
+                t1 = time.perf_counter()
+                out += srx.feed_device(br, bi, threshold=0.2, max_lag=STREAM_LAG)
+                call_ms.append((time.perf_counter() - t1) * 1e3)
+        out += srx.flush()
+        return out
+
+    want_offs = np.arange(STREAM_FRAMES // 2)[:, None] * pair_len + np.array(
+        [0, gen_a.frame_len + STREAM_GAP])
+    want_offs = want_offs.reshape(-1)
+
+    def check_pass(frames0, base):
+        if len(frames0) != STREAM_FRAMES:
+            raise AssertionError(f"adaptive stream: {len(frames0)} frames, not {STREAM_FRAMES}")
+        if not np.array_equal(np.stack([f["payload"] for f in frames0]), pays):
+            raise AssertionError("adaptive stream: decoded payloads differ from those sent")
+        if not np.array_equal(np.stack([f["header"] for f in frames0]), hdrs):
+            raise AssertionError("adaptive stream: decoded headers differ from those sent")
+        if not all(f["stats"].payload_valid for f in frames0):
+            raise AssertionError("adaptive stream: a payload CRC failed")
+        mods_got = [f["stats"].mod_scheme for f in frames0]
+        if mods_got[0::2] != ["qam4"] * (STREAM_FRAMES // 2) or \
+                mods_got[1::2] != ["qam16"] * (STREAM_FRAMES // 2):
+            raise AssertionError("adaptive stream: modulations do not alternate qam4, qam16")
+        offs = np.array([f["offset"] for f in frames0]) - base
+        if np.abs(offs - want_offs).max() > 2:
+            raise AssertionError("adaptive stream: a frame lies more than 2 samples off")
+
+    # the first passes also settle the speculated configs and PyTorch's allocators
+    first_s = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames0 = adaptive_pass(1)
+        first_s.append(time.perf_counter() - t0)
+        check_pass(frames0, i * n_ad)
+    # one pass with the counts at 0 just before it: the kernels' launches per step
+    torch.cuda.synchronize()
+    reset_counts()
+    frames0 = adaptive_pass(1)
+    torch.cuda.synchronize()
+    check_pass(frames0, 3 * n_ad)
+    resolve_launches = resolve_candidates.launches
+    extract_launches = extract_windows.launches
+    # a step with two speculated configs and no fallback: 2 in the scan, 1 per config
+    if resolve_launches != STREAM_BLOCKS or extract_launches != 4 * STREAM_BLOCKS:
+        raise AssertionError(f"a pass of {STREAM_BLOCKS} steps launched resolve "
+                             f"{resolve_launches} and extract {extract_launches} times, not "
+                             f"{STREAM_BLOCKS} and {4 * STREAM_BLOCKS}")
+    phase("adaptive-stream", f"{STREAM_FRAMES} frames x {STREAM_PAYLOAD} B alternating qam4/h128 "
+          f"({gen_a.frame_len} samples) and qam16/none ({gen_b.frame_len}), gap {STREAM_GAP}: N "
+          f"{n_ad} in {STREAM_BLOCKS} blocks of {a_blk}, built on the card in {build_s:.2f} s; "
+          f"StreamReceiver(cfg) with max_frames_per_block "
+          f"{srx.max_frames_per_block}, fetch_group {STREAM_GROUP}, feed_device(max_lag="
+          f"{STREAM_LAG}) + flush: {STREAM_FRAMES}/{STREAM_FRAMES} frames in each of 4 passes, "
+          f"headers and payloads equal to those sent, mods alternate, all CRCs good, offsets "
+          f"within 2 samples; first three passes {', '.join(f'{t:.3f}' for t in first_s)} s; per "
+          f"pass of {STREAM_BLOCKS} steps: resolve launches {resolve_launches}, extract launches "
+          f"{extract_launches} ({extract_launches / STREAM_BLOCKS:g} per step: 2 in the scan, 1 "
+          f"per speculated config)")
+
+    # 14b. the resolve kernel on the stream's own columns: one step's scan
+    from cognitive_radio_network_tpu_torch.phy import framesync, stream as stream_mod
+
+    r_cap = framesync._bucket_len(srx.max_residual)
+    buf = [torch.cat([torch.zeros(r_cap, device=dev), b]) for b in blocks[0]]
+    n_buf = buf[0].shape[0]
+    k_step = min(srx.max_frames_per_block, max(4, -(-n_buf // srx.prefix_len)))
+    bests, peaks, _, _, phy, hdr_ok = framesync._scan_block_graph(srx.layout, *buf, n_buf, k=k_step)
+    flen, valid = stream_mod._phy_geometry(srx.layout, phy)
+    order = torch.argsort(bests, stable=True)
+    cols = (bests[order], peaks[order], (hdr_ok & valid)[order], flen[order],
+            torch.full((1,), n_buf - srx.prefix_len, dtype=torch.int64, device=dev))
+    args = (*cols, 0.2, n_buf, srx.prefix_len)
+    got = resolve_candidates(*args)
+    want = resolve_candidates_plain(*args)
+    equal_or_raise(got, want, f"the stream's K={k_step} columns")
+    n_acc = int(got[0].sum())
+    if n_acc < STREAM_FRAMES // STREAM_BLOCKS - 1:
+        raise AssertionError(f"the walk accepted {n_acc} of the block's frames")
+    r_plain_1 = time_ms(resolve_candidates_plain, [args], reps=5)
+    r_kern_1 = time_ms(resolve_candidates, [args], reps=200)
+    r_kern_2 = time_ms(resolve_candidates, [args], reps=200)
+    r_plain_2 = time_ms(resolve_candidates_plain, [args], reps=5)
+    rk, rp = statistics.median(r_kern_1), statistics.median(r_plain_1)
+    # 21 bytes read and 1 written per candidate, and the meta; about 10 integer operations each
+    r_bound, r_by = bound(k_step * 22 + 8 + 24, k_step * 10)
+    phase("resolve-vs-plain", f"the stream's first block, K={k_step} candidates in offset order "
+          f"({n_acc} accepted): accept flags and meta torch.equal to the plain version "
+          f"(max abs err {resolve_err:.1e} over phases 14a and 14b)")
+    phase("time", f"resolve K={k_step}: kernel {rk:.4f} ms/call (bound {r_bound:.6f} ms by "
+          f"{r_by}: a chain of K dependent steps in one thread, so its time is latency), plain "
+          f"version (device-to-host copy, host loop, copy back) {rp:.4f} ms/call and it waits for "
+          f"the device; median of 3; second turn kernel "
+          f"{statistics.median(r_kern_2):.4f}, plain {statistics.median(r_plain_2):.4f}; {smi}")
+    del cols, args
+
+    # 7b. extract, kernel vs plain on the stream step's own windows: the step's
+    # buffer and its K candidates, at each window length a step asks for
+    span = cfg_a.cp_len + cfg_a.num_subcarriers  # the refinement's reach (framesync._refine)
+    ref_wlen = 2 * span + 2 * cfg_a.num_subcarriers
+    step_cases = [
+        (f"frame windows of {gen_a.cfg.mod_scheme}/{gen_a.cfg.fec0}", bests, gen_a.frame_len),
+        (f"frame windows of {gen_b.cfg.mod_scheme}/{gen_b.cfg.fec0}", bests, gen_b.frame_len),
+        ("the scan's header windows", bests, srx.prefix_len),
+        ("the scan's refinement windows", (bests - span).clamp(0, n_buf - ref_wlen), ref_wlen),
+    ]
+    extract_err, step_times = 0.0, {}
+    for label, offs, wlen in step_cases:
+        got = extract_windows(*buf, offs, wlen)
+        want = extract_windows_plain(*buf, offs, wlen)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"extract kernel differs from the plain version at {label}")
+        err = max((got[i] - want[i]).abs().max().item() for i in (0, 1))
+        extract_err = max(extract_err, err)
+        del got, want
+        inputs = [(*buf, offs, wlen)]
+        plain_1 = time_ms(extract_windows_plain, inputs)
+        kern_1 = time_ms(extract_windows, inputs)
+        kern_2 = time_ms(extract_windows, inputs)
+        plain_2 = time_ms(extract_windows_plain, inputs)
+        k_ms, p_ms = statistics.median(kern_1), statistics.median(plain_1)
+        # a gather: the K windows read and written once, both planes, and the offsets
+        b_ms, b_by = bound(2 * 2 * k_step * wlen * 4 + k_step * 8, 0)
+        step_times[wlen] = (k_ms, p_ms, b_ms, b_by)
+        phase("extract-vs-plain", f"stream step, N={n_buf} K={k_step} wlen={wlen} ({label}): "
+              f"torch.equal on both planes (max abs err {err:.1e}); kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, median of 3; second turn kernel "
+              f"{statistics.median(kern_2):.4f}, plain {statistics.median(plain_2):.4f}; {smi}")
+    del buf
+
+    # times: 6 passes per trial, median of 3 trials, PyTorch's sync debug mode on
+    # "warn" around the trials: a synchronizing call inside a dispatch would warn
+    trials = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(3):
+                call_ms.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                af = adaptive_pass(STREAM_PASSES)
+                ael = time.perf_counter() - t0
+                trials.append((STREAM_PASSES * n_ad / ael / 1e6, STREAM_PASSES * STREAM_FRAMES / ael,
+                               ael, list(call_ms)))
+                if len(af) != STREAM_PASSES * STREAM_FRAMES:
+                    raise AssertionError(f"a timed trial decoded {len(af)} frames")
+                if not np.array_equal(np.stack([f["payload"] for f in af[:STREAM_FRAMES]]), pays):
+                    raise AssertionError("a timed trial's payloads differ from those sent")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught if "synchronizing CUDA operation" in str(w.message)]
+    if syncs:
+        raise AssertionError(f"{len(syncs)} synchronizing calls inside the timed passes, e.g. "
+                             f"{syncs[0]}")
+    trials.sort(key=lambda t: t[0])
+    msps, fps, ael, calls = trials[1]
+    ahead = calls[:STREAM_LAG]  # dispatches that read no step
+    reading = calls[STREAM_LAG:]  # dispatches that also read a step 18 behind
+    # device time of a pass, back to back: events around a pass whose reads are all deferred
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for br, bi in blocks:
+        srx.feed_device(br, bi, threshold=0.2, max_lag=STREAM_LAG)
+    stop.record()
+    torch.cuda.synchronize()
+    pass_dev_ms = start.elapsed_time(stop)
+    srx.flush()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("stream_pass"):
+            adaptive_pass(1)
+        torch.cuda.synchronize()
+    trace_path = ROOT / "build" / "chip_smoke_stream_trace.json"
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        prof.export_chrome_trace(str(trace_path))
+        trace = json.loads(trace_path.read_text())
+    finally:
+        trace_path.unlink(missing_ok=True)
+    _, _, busy_us, ops = stage_device_times(trace, ["stream_pass"])["stream_pass"]
+    if ops == 0:
+        raise AssertionError("the trace holds no device operation launched by the stream pass")
+    pass_ms = ael / STREAM_PASSES * 1e3
+    phase("time", f"adaptive stream, {STREAM_PASSES} passes of {STREAM_BLOCKS} blocks per trial "
+          f"(N {n_ad} per pass): {msps:.4f} MS/s, {fps:.1f} frames/s, {pass_ms:.3f} ms per pass, "
+          f"median of 3 trials (MS/s {', '.join(f'{t[0]:.4f}' for t in trials)}), every payload "
+          f"delivered to the host; host time per feed_device call: "
+          f"{statistics.median(ahead):.3f} ms median over the {len(ahead)} calls that read no step "
+          f"({min(ahead):.3f}-{max(ahead):.3f}), {statistics.median(reading):.3f} ms over the "
+          f"{len(reading)} that also read the step {STREAM_LAG} behind "
+          f"({min(reading):.3f}-{max(reading):.3f}); synchronizing calls inside the timed passes: "
+          f"{len(syncs)} (PyTorch's sync debug mode), so no step waited for the device before it "
+          f"fell {STREAM_LAG} behind; {smi}")
+    phase("time", f"adaptive stream, one pass of {STREAM_BLOCKS} steps: {pass_dev_ms:.3f} ms by "
+          f"CUDA events around 4 dispatches with every read deferred "
+          f"({n_ad / pass_dev_ms / 1e3:.1f} MS/s); profiled: {ops / STREAM_BLOCKS:.1f} device "
+          f"operations and {busy_us / STREAM_BLOCKS / 1e3:.3f} ms busy per step, so the device "
+          f"idles {1 - busy_us / 1e3 / pass_ms:.1%} of an unprofiled pass of {pass_ms:.3f} ms; "
+          f"{smi}")
+    entry = {
+        "name": "resolve_candidates",
+        "route": "cuda",
+        "source": RESOLVE_SOURCE,
+        "replaces": RESOLVE_REPLACES,
+        "note": "no TPU kernel: the reference runs this walk as a lax.scan in its step graph",
+        "launches": resolve_launches,
+        "max_abs_err": resolve_err,  # flags that differ, or the meta's largest difference
+        "ms": rk,
+        "plain_ms": rp,
+        "bound_ms": r_bound,
+        "bound_by": r_by,
+        "library_ms": None,  # a sequential greedy walk: no PyTorch call computes it
+    }
+    wide = step_times[gen_a.frame_len]
+    stream_extract = {
+        "launches_per_stream_step": extract_launches / STREAM_BLOCKS,
+        "stream_step_max_abs_err": extract_err,
+        "stream_step_shape": f"N={n_buf} K={k_step} wlen={gen_a.frame_len}",
+        "stream_step_ms": wide[0],
+        "stream_step_plain_ms": wide[1],
+        "stream_step_bound_ms": wide[2],
+    }
+    return entry, stream_extract
 
 
 def main() -> int:
@@ -958,6 +1408,11 @@ def main() -> int:
 
     extract_entry = link_phases(dev, smi)
     new_entries = wideband_and_dense_phases(dev, smi, planar, trace, params)
+    del planar
+    resolve_entry, stream_extract = stream_phases(dev, smi)
+    extract_entry.update(stream_extract)
+    extract_entry["max_abs_err"] = max(
+        extract_entry["max_abs_err"], stream_extract["stream_step_max_abs_err"])
     bound_ms, bound_by = sense_bound(CYCLES, a, n, 4)
     kernels = [{
         "name": "fused_sense_ct",
@@ -971,7 +1426,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # FFT + magnitude + mean + band sums: no single PyTorch call
-    }, extract_entry, *new_entries]
+    }, extract_entry, *new_entries, resolve_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,6 @@
 // The tail of the sense chain, shared by the two sense kernels
-// (fused_sense_ct.cu: 512-point FFT; fused_sense.cu: dense 512-point DFT):
-// the bin magnitude, then per cycle the mean over the A buffers, the band
+// (fused_sense_ct.cu: spectrum and features; fused_sense.cu: features only)
+// through fft512_warp.cuh: the bin magnitude, then per cycle the mean over the A buffers, the band
 // amplitude sums through the (512, 4) indicator matrix, and their squares
 // (CE_Predictive_Node.cpp:152-154 and :173-197).
 //

@@ -8,8 +8,11 @@ Each replaces one Pallas TPU kernel of ``cognitive_radio_network_tpu/ops``
 ``wideband_energy_fused``  ``fused_wideband.py``  -> ``csrc/fused_wideband.cu``
 ``fused_band_features``    ``fused_sense.py``     -> ``csrc/fused_sense.cu``
 
-Every TPU kernel of the reference has its counterpart here.  Kernels build
-at first launch, never at import.
+Every TPU kernel of the reference has its counterpart here.  One kernel has
+no TPU counterpart: ``resolve_candidates`` (``csrc/resolve_candidates.cu``),
+the adaptive stream step's greedy walk over its candidates, which the
+reference runs as a ``lax.scan`` inside its step graph.  Kernels build at
+first launch, never at import.
 """
 
 from cognitive_radio_network_tpu_torch.ops.extract import extract_windows, extract_windows_plain
@@ -25,6 +28,10 @@ from cognitive_radio_network_tpu_torch.ops.fused_wideband import (
     wideband_energy_fused,
     wideband_energy_fused_plain,
 )
+from cognitive_radio_network_tpu_torch.ops.resolve import (
+    resolve_candidates,
+    resolve_candidates_plain,
+)
 
 __all__ = [
     "extract_windows",
@@ -33,6 +40,8 @@ __all__ = [
     "fused_band_features_plain",
     "fused_sense_ct",
     "fused_sense_ct_plain",
+    "resolve_candidates",
+    "resolve_candidates_plain",
     "wideband_energy_fused",
     "wideband_energy_fused_plain",
 ]

@@ -5,7 +5,7 @@ checkout, under a name keyed by a hash of the sources and flags, so an edit
 rebuilds and an unchanged tree reuses the library.  The library has a plain
 C interface: no PyTorch headers, so a build takes seconds, not minutes.
 Pointers and the stream pass as ``c_void_p``, ints as ``c_int`` (64-bit
-lengths as ``c_longlong``); each entry
+lengths as ``c_longlong``, a threshold as ``c_float``); each entry
 point returns ``cudaGetLastError()`` after its launch.
 
 Nothing here runs at import: the CPU-only test machines have no ``nvcc``.
@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 )
 
 # entry point -> argtypes; restype is c_int (a cudaError_t) for all
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     # xr, xi, is_bf16, tw, band, avg, feats, cycles, averaging, stream
     "crn_fused_sense_ct": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _P),
@@ -47,8 +47,10 @@ _SIGNATURES = {
     "crn_extract_windows": (_P, _P, _P, _I, _P, _P, _L, _I, _I, _P),
     # xr, xi, taps, tw, hist_r, hist_i (null: none), out, cycles, block_len, stream
     "crn_fused_wideband": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _P),
-    # xr, xi, fre, fim, band, feats, cycles, averaging, stream
-    "crn_fused_sense": (_P, _P, _P, _P, _P, _P, _L, _I, _P),
+    # xr, xi, tw, band, feats, cycles, averaging, stream
+    "crn_fused_sense": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # offs, peaks, ok, flen, keep0, accept, meta, k, thr, n, prefix, stream
+    "crn_resolve_candidates": (_P, _P, _P, _P, _P, _P, _P, _I, _F, _L, _L, _P),
 }
 
 

@@ -1,22 +1,24 @@
-"""The dense-DFT sense chain: IQ planes -> band-energy features.
+"""The features-only sense chain: IQ planes -> band-energy features.
 
 Port of ``cognitive_radio_network_tpu/ops/fused_sense.py`` (the Pallas TPU
 kernel ``_kernel``) to a CUDA C++ kernel for Hopper, ``csrc/fused_sense.cu``.
 Per cycle of A buffers of 512 samples:
 
-    dense 512-point DFT as float32 matrix products
-    (xre = xr Fre - xi Fim, xim = xr Fim + xi Fre) -> |X| -> mean over the A
-    rows -> band amplitude sums through the (512, 4) indicator matrix -> squared
+    512-point DFT in full float32 -> |X| -> mean over the A rows -> band
+    amplitude sums through the (512, 4) indicator matrix -> squared
 
 A drop-in for ``averaged_magnitude_spectrum`` + ``band_features`` with the
 same numerical contract (full float32), and the same features as
-:func:`..fused_sense_ct.fused_sense_ct` returns beside its spectrum.
+:func:`..fused_sense_ct.fused_sense_ct` returns beside its spectrum.  The TPU
+kernel takes its spectrum from a dense (512, 512) product on the matrix unit;
+the CUDA kernel takes it from the register FFT it shares with
+``csrc/fused_sense_ct.cu`` and writes no spectrum.
 
 :func:`fused_band_features` launches the kernel for CUDA tensors and runs
-:func:`fused_band_features_plain` (four matmuls, magnitude, mean, band matmul,
-square) for CPU tensors.  The choice follows the tensor's device only; on a
-CUDA tensor the wrapper launches the kernel or raises.  The reference's
-``tile_c`` argument, and its rule that C be a multiple of it, belong to the
+:func:`fused_band_features_plain` (the TPU kernel's steps: four matmuls against
+the dense DFT matrices, magnitude, mean, band matmul, square) for CPU tensors.
+The choice follows the tensor's device only; on a CUDA tensor the wrapper
+launches the kernel or raises.  The reference's ``tile_c`` argument, and its rule that C be a multiple of it, belong to the
 TPU's tiling and have no counterpart: any C >= 0 is valid.
 """
 
@@ -25,13 +27,13 @@ from __future__ import annotations
 import torch
 
 from cognitive_radio_network_tpu_torch.ops._launch import input_ptr, launch
+from cognitive_radio_network_tpu_torch.ops._sense import N as _N
+from cognitive_radio_network_tpu_torch.ops._sense import band_matrix, count_rows, twiddles
 from cognitive_radio_network_tpu_torch.signal import bands as bands_mod
 from cognitive_radio_network_tpu_torch.signal.fft import _device_tables, _mm
 from cognitive_radio_network_tpu_torch.utils.device import on_cuda
 
 __all__ = ["fused_band_features", "fused_band_features_plain"]
-
-_N = 512
 
 
 def _rows(iq_planes, averaging: int):
@@ -43,24 +45,12 @@ def _rows(iq_planes, averaging: int):
     without a copy."""
     if isinstance(iq_planes, (tuple, list)):
         xr, xi = iq_planes
-        if xr.shape != xi.shape:
-            raise ValueError(f"xr {tuple(xr.shape)} and xi {tuple(xi.shape)} differ in shape")
-        if xr.dim() == 3:
-            averaging = xr.shape[1]
-        elif xr.dim() != 2:
-            raise ValueError(f"expected (C*A, N) or (C, A, N) planes, got {tuple(xr.shape)}")
     else:
         if iq_planes.dim() != 4 or iq_planes.shape[-1] != 2:
             raise ValueError(f"expected (C, A, N, 2) planes, got {tuple(iq_planes.shape)}")
-        averaging = iq_planes.shape[1]
-        xr, xi = iq_planes[..., 0], iq_planes[..., 1]
-    n = xr.shape[-1]
-    if n != _N:
-        raise ValueError(f"fused_band_features requires N={_N}, got {n}")
-    rows = xr.numel() // n
-    if averaging < 1 or rows % averaging:
-        raise ValueError(f"rows {rows} not divisible by averaging {averaging}")
-    return xr.reshape(rows, n).contiguous(), xi.reshape(rows, n).contiguous(), averaging
+        xr, xi = iq_planes[..., 0], iq_planes[..., 1]  # (C, A, N): A from the shape
+    rows, averaging = count_rows(xr, xi, averaging, "fused_band_features")
+    return xr.reshape(rows, _N).contiguous(), xi.reshape(rows, _N).contiguous(), averaging
 
 
 def fused_band_features_plain(
@@ -92,8 +82,9 @@ def fused_band_features(
 
     CPU tensors run :func:`fused_band_features_plain`.  CUDA tensors launch
     the kernel on the current stream, without synchronizing; they must be
-    float32 on one card (planar planes that are contiguous and 16-byte
-    aligned pass without a copy).  Each launch adds one to
+    float32 on one card (contiguous planar planes pass without a copy; the
+    kernel loads scalars, so any alignment of a float will do).  Each launch
+    adds one to
     ``fused_band_features.launches``.
     """
     first = iq_planes[0] if isinstance(iq_planes, (tuple, list)) else iq_planes
@@ -103,19 +94,16 @@ def fused_band_features(
     dev = xr.device
     if xr.dtype != torch.float32 or xi.dtype != torch.float32:
         raise TypeError(f"kernel takes float32 planes, got {xr.dtype}, {xi.dtype}")
-    p_xr = input_ptr(xr, "xr", dev, aligned=True)
-    p_xi = input_ptr(xi, "xi", dev, aligned=True)
-    band = bands_mod._device_band_matrix(bands, dev)
-    if band.shape != (_N, 4):
-        raise ValueError(f"kernel takes a ({_N}, 4) band matrix, got {tuple(band.shape)}")
-    fre, fim = _device_tables("dft", 0, _N, dev)
+    p_xr = input_ptr(xr, "xr", dev)
+    p_xi = input_ptr(xi, "xi", dev)
+    band = band_matrix(bands, dev)
     c = xr.shape[0] // a
     feats = xr.new_empty((c, 4))
     if c == 0:
         return feats
     launch(
         "crn_fused_sense", dev,
-        p_xr, p_xi, fre.data_ptr(), fim.data_ptr(), band.data_ptr(), feats.data_ptr(), c, a,
+        p_xr, p_xi, twiddles(dev).data_ptr(), band.data_ptr(), feats.data_ptr(), c, a,
     )
     fused_band_features.launches += 1
     return feats

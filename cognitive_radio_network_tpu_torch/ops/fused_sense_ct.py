@@ -21,42 +21,23 @@ says what bounds it on the card.
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
 
 from cognitive_radio_network_tpu_torch.ops._launch import input_ptr, launch
+from cognitive_radio_network_tpu_torch.ops._sense import N as _N
+from cognitive_radio_network_tpu_torch.ops._sense import band_matrix, count_rows, twiddles
 from cognitive_radio_network_tpu_torch.signal import bands as bands_mod
 from cognitive_radio_network_tpu_torch.signal.fft import PRECISIONS, spectrum_magnitude
 from cognitive_radio_network_tpu_torch.utils.device import on_cuda
 
 __all__ = ["fused_sense_ct", "fused_sense_ct_plain"]
 
-_N = 512
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def _count_rows(xr: torch.Tensor, xi: torch.Tensor, averaging: int) -> tuple[int, int]:
-    """Check the planar input's shape; return its number of rows C*A, and A."""
-    if xr.shape != xi.shape:
-        raise ValueError(f"xr {tuple(xr.shape)} and xi {tuple(xi.shape)} differ in shape")
-    if xr.ndim == 3:  # (C, A, N): A comes from the shape, as in the reference
-        averaging = xr.shape[1]
-    elif xr.ndim != 2:
-        raise ValueError(f"expected (C*A, N) or (C, A, N) planes, got {tuple(xr.shape)}")
-    n = xr.shape[-1]
-    if n != _N:
-        raise ValueError(f"fused_sense_ct requires N={_N}, got {n}")
-    rows = xr.numel() // n
-    if averaging < 1 or rows % averaging:
-        raise ValueError(f"rows {rows} not divisible by averaging {averaging}")
-    return rows, averaging
 
 
 def _rows(xr: torch.Tensor, xi: torch.Tensor, averaging: int):
     """Check the planar input; return it buffers-flat (C*A, N) with A."""
-    rows, averaging = _count_rows(xr, xi, averaging)
+    rows, averaging = count_rows(xr, xi, averaging, "fused_sense_ct")
     return xr.reshape(rows, _N), xi.reshape(rows, _N), averaging
 
 
@@ -76,14 +57,6 @@ def fused_sense_ct_plain(
     mags = spectrum_magnitude((xr.float(), xi.float()), mode="ct_matmul", precision=precision)
     avg = mags.reshape(-1, a, _N).mean(dim=1)
     return avg, bands_mod.band_features(avg, bands)
-
-
-@functools.lru_cache(maxsize=8)
-def _twiddles(device: torch.device) -> torch.Tensor:
-    """(2, 512) float32 cos/sin of -2*pi*k/512, built in float64: the whole
-    circle, since the kernel's lane n2 takes W_512^(n2 k1) for k1 up to 15."""
-    ang = -2.0 * np.pi * np.arange(_N) / _N
-    return torch.from_numpy(np.stack([np.cos(ang), np.sin(ang)]).astype(np.float32)).to(device)
 
 
 def fused_sense_ct(
@@ -111,10 +84,9 @@ def fused_sense_ct(
         raise TypeError(f"kernel takes float32 or bfloat16 planes, got {xr.dtype}, {xi.dtype}")
     p_xr = input_ptr(xr, "xr", dev)
     p_xi = input_ptr(xi, "xi", dev)
-    rows, a = _count_rows(xr, xi, averaging)  # contiguous: (C, A, N) is (C*A, N) in memory
-    band = bands_mod._device_band_matrix(bands, dev)
-    if band.shape != (_N, 4):
-        raise ValueError(f"kernel takes a ({_N}, 4) band matrix, got {tuple(band.shape)}")
+    # contiguous: (C, A, N) is (C*A, N) in memory
+    rows, a = count_rows(xr, xi, averaging, "fused_sense_ct")
+    band = band_matrix(bands, dev)
     c = rows // a
     avg = xr.new_empty((c, _N), dtype=torch.float32)
     feats = xr.new_empty((c, 4), dtype=torch.float32)
@@ -122,7 +94,7 @@ def fused_sense_ct(
         return avg, feats
     launch(
         "crn_fused_sense_ct", dev,
-        p_xr, p_xi, int(xr.dtype == torch.bfloat16), _twiddles(dev).data_ptr(), band.data_ptr(),
+        p_xr, p_xi, int(xr.dtype == torch.bfloat16), twiddles(dev).data_ptr(), band.data_ptr(),
         avg.data_ptr(), feats.data_ptr(), c, a,
     )
     fused_sense_ct.launches += 1

@@ -252,8 +252,8 @@ class OFDMFrameGen:
 
     def device_constants(self, device: torch.device | str) -> dict[str, torch.Tensor]:
         """The generator's tables on ``device``, built once per device: the
-        index maps, pilots, S1, the preamble, the CP window and the 2x-S0
-        detection template."""
+        index maps, pilots, S1, the preamble, the CP window, the 2x-S0
+        detection template and this generator's 6-byte PHY header."""
         device = torch.device(device)
         if device not in self._on_device:
             cfg = self.cfg
@@ -271,6 +271,7 @@ class OFDMFrameGen:
                 "preamble": t(np.concatenate([self.S0_time, self.S0_time, self.S1_time])
                               .astype(np.complex64)),
                 "tmpl": t(np.concatenate([self.S0_time, self.S0_time]).astype(np.complex64)),
+                "phy": t(pack_phy_header(cfg, self.payload_len)),
                 "window": torch.cat([
                     _taper_window(cfg.taper_len, device),
                     torch.ones(m + cp - cfg.taper_len, device=device),

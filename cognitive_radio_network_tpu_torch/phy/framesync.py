@@ -1,10 +1,12 @@
 """OFDM frame synchronizer — the ``ofdmflexframesync`` capability, batched.
 
-Port of the fixed-configuration part of
-``cognitive_radio_network_tpu/phy/framesync.py``.  liquid's synchronizer is a
-per-sample adaptive state machine (AGC, squelch, timing PLL) driven inside
-``ECR_rx_worker``'s hot loop (src/extensible_cognitive_radio.cpp:1299-1366).
-This design is block-oriented and batched instead:
+Port of ``cognitive_radio_network_tpu/phy/framesync.py``: the
+fixed-configuration synchronizer and the block scan here, the adaptive
+:class:`StreamReceiver` in :mod:`.stream` (re-exported below).  liquid's
+synchronizer is a per-sample adaptive state machine (AGC, squelch, timing
+PLL) driven inside ``ECR_rx_worker``'s hot loop
+(src/extensible_cognitive_radio.cpp:1299-1366).  This design is
+block-oriented and batched instead:
 
 * **detect**: Schmidl&Cox autocorrelation metric over a whole IQ block at
   once finds S0 preambles, refines timing with a CFO-corrected matched
@@ -49,7 +51,7 @@ from cognitive_radio_network_tpu_torch.phy.framegen import (
 from cognitive_radio_network_tpu_torch.signal.iq import split_iq
 from cognitive_radio_network_tpu_torch.utils.device import full_f32
 
-__all__ = ["FrameSyncStats", "OFDMFrameSync"]
+__all__ = ["FrameSyncStats", "OFDMFrameSync", "StreamReceiver"]
 
 
 @dataclasses.dataclass
@@ -215,7 +217,23 @@ def _cis(theta: torch.Tensor) -> torch.Tensor:
 
 
 def _n_valid(n_valid, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(n_valid, dtype=torch.int64).to(device)
+    """The count of valid samples as a 0-d int64 tensor on ``device``, exact
+    at any length.  An int gets there by a fill on the device, not by a copy
+    from the host, which would wait for the stream's earlier work."""
+    if isinstance(n_valid, torch.Tensor):
+        return n_valid.to(device=device, dtype=torch.int64)
+    return torch.full((), int(n_valid), dtype=torch.int64, device=device)
+
+
+def _bucket_len(n: int, floor: int = 1) -> int:
+    """The reference's shape bucket: the next multiple of an eighth of the
+    enclosing power of two.  Nothing is compiled per shape here; the bucket is
+    kept because the padded length decides how far back a refinement window
+    near the buffer's end is clipped, and so which offsets the scan finds."""
+    n = max(n, floor, 1)
+    p = 1 << (n - 1).bit_length()
+    q = max(p // 8, 1)
+    return -(-n // q) * q
 
 
 # ----------------------------------------------------------------------
@@ -525,3 +543,8 @@ def _scan_block_graph(layout: OFDMFrameGen, rr, ri, n_valid, *, k: int):
     headers, phy, hdr_ok = _decode_header_graph(hdr_bits)
     hdr_ok = hdr_ok & (bests + pref <= nv)
     return bests, peaks, cfos, headers, phy, hdr_ok
+
+
+# The adaptive receiver builds on everything above, so its module is imported
+# last; ``from ...phy.framesync import StreamReceiver`` works as in the reference.
+from cognitive_radio_network_tpu_torch.phy.stream import StreamReceiver  # noqa: E402

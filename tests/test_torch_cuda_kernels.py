@@ -13,9 +13,13 @@ Bounds are those of chip_smoke.py: avg rtol 1e-4, atol 1e-5 and feats rtol
 for bit (``torch.equal``).  ``wideband_energy_fused``: rtol 1e-5, atol 1e-7
 against the plain version at "highest" (both float32, an FFT against a matrix
 product); a stream cut in two with the history carried gives the whole
-stream's bits.  ``fused_band_features``: rtol 1e-4.
+stream's bits.  ``fused_band_features``: rtol 1e-4 against the dense plain
+version, 1e-6 against ``fused_sense_ct``'s features (the same register FFT in
+another kernel: equal or a few ulp), equal from run to run.
+``resolve_candidates`` is integers and one float32 compare: ``torch.equal``.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,8 +38,17 @@ from cognitive_radio_network_tpu_torch.ops.fused_wideband import (
     wideband_energy_fused,
     wideband_energy_fused_plain,
 )
+from cognitive_radio_network_tpu_torch.ops.resolve import (
+    resolve_candidates,
+    resolve_candidates_plain,
+)
 from cognitive_radio_network_tpu_torch.parallel.wideband import WidebandConfig, make_wideband_fn
-from cognitive_radio_network_tpu_torch.phy import OFDMFrameConfig, OFDMFrameGen, OFDMFrameSync
+from cognitive_radio_network_tpu_torch.phy import (
+    OFDMFrameConfig,
+    OFDMFrameGen,
+    OFDMFrameSync,
+    StreamReceiver,
+)
 from cognitive_radio_network_tpu_torch.signal.mlp import OccupancyMLP, reference_weights
 
 pytestmark = [
@@ -330,7 +343,26 @@ def test_dense_sense_kernel_matches_plain(cycles, averaging):
     assert got.shape == (cycles, 4)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
     _, ct = fused_sense_ct(xr, xi, averaging=averaging)
-    torch.testing.assert_close(got, ct, rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(got, ct, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("averaging", [1, 3, 10])
+@pytest.mark.parametrize("cycles", [1, 5, 133, 4096])
+def test_dense_sense_kernel_same_from_run_to_run_and_whatever_c(cycles, averaging):
+    """Equal bits from run to run, and a cycle's bits do not depend on how many
+    cycles the dispatch holds or which block ran it: the first cycles of a long
+    dispatch equal a short dispatch of those cycles alone."""
+    xr, xi = _planes(cycles, seed=cycles + averaging, a=averaging)
+    got = fused_band_features((xr, xi), averaging=averaging)
+    again = fused_band_features((xr, xi), averaging=averaging)
+    head = max(1, cycles // 3)
+    alone = fused_band_features((xr[: head * averaging], xi[: head * averaging]),
+                                averaging=averaging)
+    want = fused_band_features_plain((xr, xi), averaging=averaging)
+    torch.cuda.synchronize()
+    assert got.shape == (cycles, 4)
+    assert torch.equal(got, again) and torch.equal(got[:head], alone)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
 
 
 def test_dense_sense_kernel_takes_interleaved_planes_and_rejects_bad_input():
@@ -345,3 +377,124 @@ def test_dense_sense_kernel_takes_interleaved_planes_and_rejects_bad_input():
         fused_band_features((xr.reshape(-1, 256), xi.reshape(-1, 256)))
     with pytest.raises(ValueError, match="but xi on cpu"):
         fused_band_features((xr, xi.cpu()))
+    with pytest.raises(ValueError, match="not divisible"):
+        fused_band_features((xr[:15], xi[:15]))
+    # scalar loads: planes at any float's alignment pass as they are
+    flat_r, flat_i = xr.reshape(-1), xi.reshape(-1)
+    odd = (flat_r[1 : 1 + 20 * 512].reshape(20, 512), flat_i[1 : 1 + 20 * 512].reshape(20, 512))
+    assert odd[0].data_ptr() % 16 != 0
+    want = fused_band_features_plain(odd)
+    torch.testing.assert_close(fused_band_features(odd), want, rtol=1e-4, atol=0.0)
+
+
+def _candidates(k, seed, n=2_500_000, prefix=304):
+    rng = np.random.default_rng(seed)
+    offs = np.sort(rng.integers(0, n + 2000, k))
+    if k > 2:
+        offs[1] = offs[0]
+    cols = (offs, rng.uniform(0, 1, k).astype(np.float32), rng.uniform(0, 1, k) < 0.9,
+            rng.integers(prefix, 6000, k), np.array([int(rng.integers(0, n))]))
+    return tuple(torch.from_numpy(c).cuda() for c in cols), n, prefix
+
+
+@pytest.mark.parametrize("k", [1, 2, 16, 255, 256, 257, 520, 1500])
+def test_resolve_kernel_equals_plain(k):
+    for seed in range(4):
+        cols, n, prefix = _candidates(k, seed)
+        before = resolve_candidates.launches
+        accept, meta = resolve_candidates(*cols, 0.2, n, prefix)
+        assert resolve_candidates.launches == before + 1
+        want_accept, want_meta = resolve_candidates_plain(*cols, 0.2, n, prefix)
+        assert accept.dtype == torch.bool and meta.dtype == torch.int64
+        assert torch.equal(accept, want_accept) and torch.equal(meta, want_meta)
+    # spaced like real frames, so that most are accepted and the walk ends at an overrun
+    offs = torch.arange(k, device="cuda") * 5376 + 100
+    flen = torch.full((k,), 4864, device="cuda")
+    cols = (offs, torch.ones(k, device="cuda"), torch.ones(k, dtype=torch.bool, device="cuda"),
+            flen, torch.tensor([k * 5376 - 304], device="cuda"))
+    n = (k - 1) * 5376 + 100 + 4000
+    got = resolve_candidates(*cols, 0.2, n, 304)
+    want = resolve_candidates_plain(*cols, 0.2, n, 304)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[0].sum()) == k - 1 and got[1].tolist() == [
+        (k - 2) * 5376 + 100 + 4864 if k > 1 else 0, (k - 1) * 5376 + 100, 1]
+
+
+def test_resolve_kernel_rejects_bad_input():
+    (offs, peaks, ok, flen, keep0), n, prefix = _candidates(8, 0)
+    with pytest.raises(TypeError, match="int64 offs"):
+        resolve_candidates(offs.int(), peaks, ok, flen, keep0, 0.2, n, prefix)
+    with pytest.raises(TypeError, match="bool ok"):
+        resolve_candidates(offs, peaks, ok.int(), flen, keep0, 0.2, n, prefix)
+    with pytest.raises(ValueError, match="four"):
+        resolve_candidates(offs, peaks[:4], ok, flen, keep0, 0.2, n, prefix)
+    with pytest.raises(ValueError, match="one card"):
+        resolve_candidates(offs, peaks, ok, flen.cpu(), keep0, 0.2, n, prefix)
+    with pytest.raises(ValueError, match="contiguous"):
+        resolve_candidates(offs, peaks, ok, flen.repeat(2)[::2], keep0, 0.2, n, prefix)
+
+
+def test_stream_receiver_on_card_three_apis_and_cpu_agree():
+    """A mixed-config stream through ``StreamReceiver(cfg)`` on the card: the
+    three APIs agree with each other and with the CPU run of the plain paths,
+    the step launches both kernels, and ``feed_device`` waits for nothing."""
+    rng = np.random.default_rng(7)
+    cfg_a = OFDMFrameConfig()
+    cfg_b = OFDMFrameConfig(mod_scheme="qam16", fec0="none")
+    f = 6
+    n = 30000
+    data = (0.003 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))).astype(np.complex64)
+    sent, pos = [], 60
+    for i in range(2 * f):
+        cfg, plen = ((cfg_a, 64), (cfg_b, 48))[i % 2]
+        h = rng.integers(0, 256, (1, 8)).astype(np.uint8)
+        p = rng.integers(0, 256, (1, plen)).astype(np.uint8)
+        iq = OFDMFrameGen(cfg, plen).assemble(h, p, device="cpu")[0].numpy()
+        if pos + len(iq) + 50 >= n:
+            break
+        data[pos : pos + len(iq)] += iq
+        sent.append((pos, p[0]))
+        pos += len(iq) + 911
+    rx_h, rx_d, rx_p = (StreamReceiver(cfg_a, max_frames_per_block=8) for _ in range(3))
+    rx_c = StreamReceiver(cfg_a, max_frames_per_block=8, device="cpu")
+    assert rx_h.device.type == "cuda"
+    out = {"host": [], "dev": [], "pipe": [], "cpu": []}
+    before = (extract_windows.launches, resolve_candidates.launches)
+    steps = 0
+    for s in range(0, n, 2048):
+        seg = data[s : s + 2048]
+        re, im = torch.from_numpy(seg.real.copy()).cuda(), torch.from_numpy(seg.imag.copy()).cuda()
+        out["host"] += rx_h.process(seg)
+        out["dev"] += rx_d.process_device(re, im)
+        torch.cuda.set_sync_debug_mode("error")  # a wait inside the dispatch would raise
+        try:
+            got = rx_p.feed_device(re, im, max_lag=100)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert got == []
+        out["cpu"] += rx_c.process_device(re.cpu(), im.cpu())
+        steps += 1
+    out["pipe"] += rx_p.flush()
+    assert resolve_candidates.launches == before[1] + 2 * steps
+    assert extract_windows.launches >= before[0] + (2 + 3 + 3) * steps  # process scans with 2
+    assert len(out["host"]) == len(sent) >= 8
+    for key, frames in out.items():
+        assert [fr["offset"] for fr in frames] == [fr["offset"] for fr in out["host"]], key
+        for fr, (off, pay) in zip(frames, sent):
+            assert abs(fr["offset"] - off) <= 2 and fr["stats"].payload_valid
+            assert (fr["payload"] == pay).all()
+
+
+def test_stream_receiver_refuses_planes_on_another_device():
+    """A receiver made for the CPU refuses planes on the card, and a receiver
+    made for the card takes host planes by moving them there."""
+    cfg = OFDMFrameConfig()
+    on_card = torch.zeros(4000, device="cuda")
+    with pytest.raises(ValueError, match="receiver on cpu was given planes on cuda:0"):
+        StreamReceiver(cfg, device="cpu").feed_device(on_card, on_card)
+    rx = StreamReceiver(cfg)
+    assert rx.process_device(torch.zeros(4000), on_card) == []
+    assert rx._res_r_d.device.type == "cuda"
+    if torch.cuda.device_count() == 1:
+        with pytest.raises(ValueError, match="receiver on cuda:1 was given planes on cuda:0"):
+            StreamReceiver(cfg, device="cuda:1").feed_device(on_card, on_card)

@@ -1,10 +1,12 @@
-"""The passes of the CUDA sense kernel (csrc/fused_sense_ct.cu), emulated on the CPU.
+"""The passes of the CUDA sense kernels, emulated on the CPU.
 
-The kernel cannot run without a card, so what surrounds its arithmetic is held
-here: the twiddle table the wrapper hands it (``_twiddles``), the W_32 table in
-its source (parsed from the ``.cu`` file), its 16 x 32 index maps, its class
-sums over a cycle's rows, and the shared epilogue.  The emulation walks the
-same passes in float32 with those tables:
+Both kernels (csrc/fused_sense_ct.cu: spectrum and features; csrc/fused_sense.cu:
+features only) run the register FFT and the walk over cycles of
+csrc/fft512_warp.cuh.  They cannot run without a card, so what surrounds their
+arithmetic is held here: the twiddle table the wrappers hand them
+(``ops/_sense.py``), the W_32 table in the shared header (parsed from the source),
+the 16 x 32 index maps, the class sums over a cycle's rows, and the shared
+epilogue.  The emulation walks the same passes in float32 with those tables:
 
     lane n2 holds x[32 n1 + n2] -> 4 x 4 FFT over n1 -> * W_512^(n2 k1)
     -> lane (k1, p): v[b] = z[k1][b] + (-1)^p z[k1][b + 16], * W_32^(b p)
@@ -14,7 +16,10 @@ and is held to ``torch.fft.fft`` in float64 (atol 1e-4 on unit-variance input:
 float32 rounding of a 512-point transform is about 1e-5), to
 ``fused_sense_ct_plain`` (avg rtol 1e-4, atol 1e-5; feats rtol 1e-4: the
 bounds the kernel is held to on the card) and to the JAX Pallas kernel in
-interpret mode (features rtol 5e-3, the golden gate's bound).
+interpret mode (features rtol 5e-3, the golden gate's bound).  The
+features-only path is the same emulation without its spectrum, held to
+``fused_band_features_plain`` (the dense four-matmul form, rtol 1e-4) and to
+the JAX dense-DFT kernel in interpret mode (rtol 1e-4).
 """
 
 import re
@@ -26,16 +31,20 @@ import pytest
 import torch
 
 import cognitive_radio_network_tpu_torch
+import cognitive_radio_network_tpu.ops.fused_sense as jax_fsops
 from cognitive_radio_network_tpu.ops.fused_sense_ct import fused_sense_ct as jax_fused_sense_ct
-from cognitive_radio_network_tpu_torch.ops.fused_sense_ct import _twiddles, fused_sense_ct_plain
+from cognitive_radio_network_tpu_torch.ops.fused_sense import fused_band_features_plain
+from cognitive_radio_network_tpu_torch.ops._sense import twiddles as _twiddles
+from cognitive_radio_network_tpu_torch.ops.fused_sense_ct import fused_sense_ct_plain
 from cognitive_radio_network_tpu_torch.signal.bands import band_matrix
 
-SOURCE = Path(cognitive_radio_network_tpu_torch.__file__).parent / "csrc" / "fused_sense_ct.cu"
+CSRC = Path(cognitive_radio_network_tpu_torch.__file__).parent / "csrc"
+SOURCE = CSRC / "fft512_warp.cuh"  # the row transform both kernels include
 WARPS = 4  # row classes of a cycle: rows a, a + 4, a + 8, ... are summed together
 
 
 def source_w32() -> torch.Tensor:
-    """The (32, 2) W_32 table as the kernel's source spells it."""
+    """The (32, 2) W_32 table as the kernels' shared header spells it."""
     text = SOURCE.read_text()
     body = text[text.index("kW32[32][2] = {") :]
     body = body[: body.index("};")]
@@ -196,3 +205,52 @@ def test_staged_kernel_bf16_input(rng):
     _, want = fused_sense_ct_plain(xr, xi, averaging=10, precision="highest")
     _, got = staged_sense(xr.bfloat16(), xi.bfloat16(), 10)
     torch.testing.assert_close(got, want, rtol=2e-2, atol=0.0)
+
+
+@pytest.mark.parametrize("name", ["fused_sense_ct.cu", "fused_sense.cu"])
+def test_both_kernels_run_the_shared_row_transform(name):
+    """Each kernel file includes the shared header and calls its walk; neither
+    keeps a transform of its own, and the features-only kernel holds no
+    matrix product, no DFT matrices and writes no spectrum."""
+    text = (CSRC / name).read_text()
+    code = "\n".join(line.split("//")[0] for line in text.splitlines())
+    assert '#include "fft512_warp.cuh"' in code
+    assert "crn::sense_cycles<" in code and "crn::sense_grid(" in code
+    for own in ("fft16", "kW32", "dft4", "fmaf", "Smem"):
+        assert own not in code, own
+    if name == "fused_sense.cu":
+        assert "crn::sense_cycles<float, false>" in code
+        assert "fre" not in code and "fim" not in code and "avg" not in code
+        assert len(text.splitlines()) < 249 // 2  # it was 249 lines as a tiled product
+    header = SOURCE.read_text()
+    assert "kWriteAvg ? avg + cycle * kSenseN : nullptr" in header
+
+
+@pytest.mark.parametrize("averaging", [1, 3, 10])
+@pytest.mark.parametrize("cycles", [1, 5])
+def test_staged_features_only_matches_dense_plain(rng, cycles, averaging):
+    """The features-only kernel's passes against the plain version it is held
+    to on the card: the dense four-matmul form."""
+    _, xr, xi = planes(rng, cycles, averaging)
+    _, feats = staged_sense(xr, xi, averaging)
+    want = fused_band_features_plain((xr, xi), averaging=averaging)
+    assert feats.shape == want.shape == (cycles, 4)
+    torch.testing.assert_close(feats, want, rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.parametrize("cycles,averaging", [(4, 10), (8, 3)])
+def test_staged_features_only_matches_jax_dense_kernel(rng, monkeypatch, cycles, averaging):
+    """Against the TPU kernel this one replaces, in interpret mode (the
+    ``pallas_call`` patch of tests/test_ops_pallas.py:15-22)."""
+    orig = jax_fsops.pl.pallas_call
+
+    def interp_call(*args, **kw):
+        kw["interpret"] = True
+        kw.pop("cost_estimate", None)
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(jax_fsops.pl, "pallas_call", interp_call)
+    iq, xr, xi = planes(rng, cycles, averaging)
+    want = jax_fsops.fused_band_features(jnp.asarray(iq), tile_c=4)
+    _, feats = staged_sense(xr, xi, averaging)
+    np.testing.assert_allclose(feats.numpy(), np.asarray(want), rtol=1e-4)

@@ -38,7 +38,11 @@ def test_port_modules_load_without_jax():
         "cognitive_radio_network_tpu_torch.models.distributed, "
         "cognitive_radio_network_tpu_torch.signal.channelizer, "
         "cognitive_radio_network_tpu_torch.ops.fused_wideband, "
-        "cognitive_radio_network_tpu_torch.ops.fused_sense\n"
+        "cognitive_radio_network_tpu_torch.ops.fused_sense, "
+        "cognitive_radio_network_tpu_torch.ops.resolve, "
+        "cognitive_radio_network_tpu_torch.ops._sense, "
+        "cognitive_radio_network_tpu_torch.profile_resolve, "
+        "cognitive_radio_network_tpu_torch.phy.stream\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cognitive_radio_network_tpu')]\n"
         "assert not bad, bad\n"
