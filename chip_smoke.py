@@ -9,7 +9,8 @@ one line; any failure raises, and the exit code is then non-zero.
 1. device and build: the card's name and power limit; builds the kernels of
    ``cognitive_radio_network_tpu_torch/csrc`` into ``build/kernels``.
 2. kernel vs plain: ``fused_sense_ct`` against ``fused_sense_ct_plain`` on
-   the same card (TF32 off) at C=4096 and C=5 cycles (f32 input), and with
+   the same card (TF32 off) at C=4096 and C=5 cycles (f32 input), at the
+   predictive engine's C=1 on two views of one (2, 10, 512) upload, and with
    bf16 input at ``precision="default"``.
 3. golden gate: 16 cycles of a synthesized PU scene through
    ``make_sense_fn(SenseConfig())``, held to ``tests/golden_reference.py``.
@@ -91,6 +92,27 @@ one line; any failure raises, and the exit code is then non-zero.
    ``feed_device`` call, synchronizing calls inside the dispatches (PyTorch's sync debug mode;
    must be none), device operations, kernel launches and busy time per step
    from a profiler trace, and the device's idle share of a pass.
+18. the two-node FDD link scenario (tests/test_runtime.py:117-145: 4 MS/s
+   medium, 16,384-sample blocks, 200 kb/s each way) through
+   ``ScenarioRuntime`` on the card for 1.0 s: packets both ways with payloads
+   equal to the m-sequence, the extract kernel launched, no failed node; the
+   host time per step by runtime layer; the summary of a 0.25 s run equal to
+   the CPU run's.
+19. ``scenarios/eight_node.cfg`` at its shipped widths (three FDD pairs, a
+   gated CW and a sweeping noise interferer, 16 MS/s, 65,536-sample blocks,
+   ``rx_scan_blocks`` 4) for 2.0 s: every radio receives intact packets, no
+   failed node; wall time, realtime factor and host time per layer.  In each
+   of 18-20, a profiler trace of a few dozen steps of a fresh run gives the
+   device operations and busy time per step and the device's idle share.
+20. ``scenarios/predictive_model.cfg`` as the reference's bench runs it
+   (bench.py:452-467): a 0.5 s warm-up, then 12.0 s: no failed node,
+   decisions, exactly one ``fused_sense_ct`` launch per decision, and
+   ``scenario_realtime_factor`` = steady_t / steady_wall_time_s; then the
+   ``CE_TX_CHANNEL_X -c 1`` variant (the SU decides 1 and retunes to 835 MHz;
+   its decisions equal the CPU run's, its MLP outputs within atol 2e-3);
+   a profiler trace of one classify call, and of the sense path at C=4096,
+   C=256 and C=1 (device operations, busy time, the kernel's and the
+   epilogue's share, idle share).
 
 The line before the last is a JSON object with each kernel's launches on its
 path, error, times and bound (the least time the card could take: bytes moved
@@ -133,6 +155,9 @@ STREAM_BLOCKS, STREAM_LAG, STREAM_GROUP, STREAM_PASSES = 4, 18, 8, 6  # bench.py
 WIDE_T = 524_288  # per-channel times per dispatch of the reference's bench (bench.py:250-261)
 WIDE_ACTIVE = (3, 17, 40, 63)  # channels that carry a tone in the wide scene
 APPLY_BATCH, APPLY_T = 4, 65_536  # the batch of streams of the apply step
+LINK_SCN_S = 1.0  # sim seconds of the two-node link scenario
+EIGHT_NODE_S = 2.0  # sim seconds of scenarios/eight_node.cfg (bench.py:512-513)
+PREDICTIVE_S = 12.0  # sim seconds of scenarios/predictive_model.cfg (bench.py:458)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate
 FP32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
 
@@ -219,6 +244,33 @@ def host_us(fn, calls: int = 2000) -> float:
         best = min(best, (time.perf_counter() - t0) / calls * 1e6)
     torch.cuda.synchronize()
     return best
+
+
+def traced(body, label: str, what: str) -> tuple[dict, float, float, int]:
+    """Run ``body()`` under the profiler (host and card), export the Chrome
+    trace under build/, read it back and remove it.  ``body`` opens
+    ``record_function(label)`` spans; returns the trace and those spans' host
+    us, device busy us and device operations.  Raises if the spans launched
+    no device operation."""
+    import torch
+
+    from cognitive_radio_network_tpu_torch.profile_link import stage_device_times
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        body()
+        torch.cuda.synchronize()
+    path = ROOT / "build" / f"chip_smoke_{label}_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    finally:
+        path.unlink(missing_ok=True)
+    _, host_us, busy_us, ops = stage_device_times(trace, [label])[label]
+    if ops == 0:
+        raise AssertionError(f"the trace holds no device operation launched by {what}")
+    return trace, host_us, busy_us, ops
 
 
 def launch_path_table(rr, ri, offs, smi: str) -> None:
@@ -700,24 +752,13 @@ def wideband_and_dense_phases(dev, smi: str, sense_planar, pu_trace, params) -> 
             torch.cuda.synchronize()
         wall_t.append((time.perf_counter() - t0) / 5 * 1e3)
     wall_ms = statistics.median(wall_t)
-    from cognitive_radio_network_tpu_torch.profile_link import stage_device_times
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    def five_calls():
         for _ in range(5):
             with torch.profiler.record_function("wideband_call"):
                 fn(big)
-        torch.cuda.synchronize()
-    trace_path = ROOT / "build" / "chip_smoke_wideband_trace.json"
-    trace_path.parent.mkdir(parents=True, exist_ok=True)
-    try:
-        prof.export_chrome_trace(str(trace_path))
-        trace = json.loads(trace_path.read_text())
-    finally:
-        trace_path.unlink(missing_ok=True)
-    _, _, busy_us, ops = stage_device_times(trace, ["wideband_call"])["wideband_call"]
-    if ops == 0:
-        raise AssertionError("the trace holds no device operation launched by the wideband call")
+
+    _, _, busy_us, ops = traced(five_calls, "wideband_call", "the wideband call")
     phase("time", f"make_wideband_fn T={WIDE_T}, one synchronized call: {wall_ms:.4f} ms by host "
           f"clock (median of 5 runs of 5: {', '.join(f'{t:.4f}' for t in wall_t)}); profiled: "
           f"{ops / 5:.1f} device operations and {busy_us / 5:.1f} us busy per call, so the device "
@@ -796,7 +837,6 @@ def stream_phases(dev, smi: str) -> tuple[dict, dict]:
         OFDMFrameGen,
         StreamReceiver,
     )
-    from cognitive_radio_network_tpu_torch.profile_link import stage_device_times
 
     cfg_a = OFDMFrameConfig()
     cfg_b = dataclasses.replace(cfg_a, mod_scheme="qam16", fec0="none")
@@ -1129,21 +1169,11 @@ def stream_phases(dev, smi: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     pass_dev_ms = start.elapsed_time(stop)
     srx.flush()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    def one_pass():
         with torch.profiler.record_function("stream_pass"):
             adaptive_pass(1)
-        torch.cuda.synchronize()
-    trace_path = ROOT / "build" / "chip_smoke_stream_trace.json"
-    trace_path.parent.mkdir(parents=True, exist_ok=True)
-    try:
-        prof.export_chrome_trace(str(trace_path))
-        trace = json.loads(trace_path.read_text())
-    finally:
-        trace_path.unlink(missing_ok=True)
-    _, _, busy_us, ops = stage_device_times(trace, ["stream_pass"])["stream_pass"]
-    if ops == 0:
-        raise AssertionError("the trace holds no device operation launched by the stream pass")
+
+    _, _, busy_us, ops = traced(one_pass, "stream_pass", "the stream pass")
     pass_ms = ael / STREAM_PASSES * 1e3
     phase("time", f"adaptive stream, {STREAM_PASSES} passes of {STREAM_BLOCKS} blocks per trial "
           f"(N {n_ad} per pass): {msps:.4f} MS/s, {fps:.1f} frames/s, {pass_ms:.3f} ms per pass, "
@@ -1185,6 +1215,342 @@ def stream_phases(dev, smi: str) -> tuple[dict, dict]:
         "stream_step_bound_ms": wide[2],
     }
     return entry, stream_extract
+
+
+class HostBreakdown:
+    """Host time by runtime layer while a scenario runs: class-level wrappers
+    around the layers' entry points, restored on exit.  Exclusive times are
+    taken by subtraction (the rx front end less ``process``, the tx path less
+    the chain).  A wrapper costs about a microsecond per call."""
+
+    def __init__(self):
+        from cognitive_radio_network_tpu_torch.engines.predictive_node import CEPredictiveNode
+        from cognitive_radio_network_tpu_torch.phy.framegen import OFDMFrameGen
+        from cognitive_radio_network_tpu_torch.phy.stream import StreamReceiver
+        from cognitive_radio_network_tpu_torch.runtime.medium import Medium
+        from cognitive_radio_network_tpu_torch.runtime.node import InterfererNode, RadioNode
+        from cognitive_radio_network_tpu_torch.runtime.radio import Radio
+
+        self.targets = {
+            "tx": (Radio, "pull_tx_block"),
+            "tx_chain": (Radio, "_make_frames_batch"),
+            "encode_header": (OFDMFrameGen, "encode_header_batch"),
+            "encode_payload": (OFDMFrameGen, "encode_payload_batch"),
+            "interferer_tx": (InterfererNode, "pull_tx_block"),
+            "medium": (Medium, "propagate"),
+            "rx": (Radio, "push_rx_block"),
+            "process": (StreamReceiver, "process"),
+            "engines": (RadioNode, "run_ce"),
+            "classify": (CEPredictiveNode, "_classify_and_act"),
+        }
+        self.total = {k: 0.0 for k in self.targets}
+        self.calls = {k: 0 for k in self.targets}
+        self._saved = {}
+
+    def _timed(self, key: str, orig):
+        import functools
+
+        @functools.wraps(orig)
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                self.total[key] += time.perf_counter() - t0
+                self.calls[key] += 1
+
+        return wrapper
+
+    def __enter__(self):
+        for key, (cls, name) in self.targets.items():
+            self._saved[key] = cls.__dict__[name]
+            setattr(cls, name, self._timed(key, self._saved[key]))
+        return self
+
+    def __exit__(self, *exc):
+        for key, (cls, name) in self.targets.items():
+            setattr(cls, name, self._saved[key])
+
+    def line(self, steps: int, wall_s: float) -> str:
+        """ms per step of each layer, exclusive, and what is left."""
+        t = self.total
+        encode = t["encode_header"] + t["encode_payload"]
+        parts = {
+            "tx coding (CRC and FEC of headers and payloads, numpy)": encode,
+            "tx chain (assemble+gain+resample on the card, one copy back)": t["tx_chain"] - encode,
+            "tx mix and queue": t["tx"] - t["tx_chain"],
+            "interferer tx": t["interferer_tx"],
+            "medium": t["medium"],
+            "rx front end (mix, noise, decimate, squelch)": t["rx"] - t["process"],
+            "StreamReceiver.process": t["process"],
+            "engines": t["engines"],
+        }
+        rest = wall_s - sum(parts.values())
+        body = "; ".join(f"{k} {v / steps * 1e3:.3f}" for k, v in parts.items())
+        return (f"host ms per step over {steps} steps: {body}; other (runtime loop, traffic, "
+                f"stats) {rest / steps * 1e3:.3f}; of the engines, classify "
+                f"{t['classify'] / steps * 1e3:.3f} ({self.calls['classify']} calls)")
+
+
+def link_scenario_cfg(run_time: float):
+    """The two-node FDD link of tests/test_runtime.py:117-145: 4 MS/s medium,
+    16,384-sample blocks, 1 MS/s and 200 kb/s each way."""
+    from cognitive_radio_network_tpu_torch.runtime import NodeConfig, ScenarioConfig
+
+    common = dict(tx_rate=1e6, rx_rate=1e6, tx_gain=20.0, rx_gain=20.0, tx_gain_soft=-6.0,
+                  ce_timeout_ms=1000.0, net_mean_throughput=200e3)
+    return ScenarioConfig(
+        num_nodes=2, run_time=run_time, medium_rate=4e6, medium_center=465e6,
+        medium_block_len=16384, medium_noise_power=1e-7, name="two_node_link",
+        nodes=[NodeConfig(tx_freq=464e6, rx_freq=466e6, **common),
+               NodeConfig(tx_freq=466e6, rx_freq=464e6, **common)],
+    )
+
+
+def predictive_variant_cfg(pu_args: str):
+    """tests/test_scenarios.py:15-47: a CE_TX_CHANNEL_X PU parked on a channel
+    and the CE_Predictive_Node SU at 833 MHz / 13 MS/s, 0.45 s."""
+    from cognitive_radio_network_tpu_torch.runtime import NodeConfig, ScenarioConfig
+
+    pu = NodeConfig(cognitive_engine="CE_TX_CHANNEL_X", ce_args=pu_args, ce_timeout_ms=50.0,
+                    net_mean_throughput=3e6, tx_freq=833e6, tx_rate=1.3e6, tx_gain=33.0,
+                    rx_freq=870e6, rx_rate=1e6)
+    su = NodeConfig(cognitive_engine="CE_Predictive_Node", ce_timeout_ms=10.0,
+                    net_mean_throughput=1e6, tx_freq=833e6, tx_rate=1e6, tx_gain=25.0,
+                    rx_freq=833e6, rx_rate=13e6)
+    return ScenarioConfig(num_nodes=2, run_time=0.45, nodes=[pu, su], medium_rate=13e6,
+                          medium_center=833e6, medium_block_len=65536, medium_noise_power=1e-7,
+                          name="predictive_test")
+
+
+def profiled(fn, label: str, kernel: str, calls: int = 5):
+    """Host clock per synchronized call (median of 5 runs of ``calls``), then
+    a profiler trace of ``calls`` calls: device operations, busy us and the
+    named kernel's us per call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    wall = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) / calls * 1e3)
+    def synced_calls():
+        for _ in range(calls):
+            with torch.profiler.record_function(label):
+                fn()
+            torch.cuda.synchronize()
+
+    trace, _, busy_us, ops = traced(synced_calls, label, label)
+    kern_us = sum(float(e["dur"]) for e in trace["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") == "kernel" and kernel in e.get("name", ""))
+    return statistics.median(wall), ops / calls, busy_us / calls, kern_us / calls
+
+
+def profile_steps(cfg, warm: int = 20, steps: int = 40) -> tuple[float, float, float]:
+    """A fresh runtime of ``cfg`` on the card: ``warm`` steps, then a profiler
+    trace of ``steps`` steps.  Returns device operations and busy us per step,
+    and the device's idle share of the traced steps' host time."""
+    import torch
+
+    from cognitive_radio_network_tpu_torch.runtime import ScenarioRuntime
+
+    rt = ScenarioRuntime(cfg)
+    rt.start()
+    for _ in range(warm):
+        rt.step()
+    torch.cuda.synchronize()
+    def stepped():
+        for _ in range(steps):
+            with torch.profiler.record_function("scenario_step"):
+                rt.step()
+
+    _, host_us, busy_us, ops = traced(stepped, "scenario_step", f"{steps} steps of {cfg.name}")
+    if rt.failed_nodes:
+        raise AssertionError(f"{cfg.name}: failed nodes {rt.failed_nodes} while profiled")
+    return ops / steps, busy_us / steps, 1 - busy_us / host_us
+
+
+def scenario_phases(smi: str) -> dict:
+    """Phases 18-20: the in-process scenario runtime on the card.  Returns
+    the launches of the sense and extract kernels on each scenario path."""
+    import dataclasses
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from cognitive_radio_network_tpu_torch import ops
+    from cognitive_radio_network_tpu_torch.models import SenseConfig, make_sense_fn
+    from cognitive_radio_network_tpu_torch.runtime import ScenarioRuntime, load_scenario
+    from cognitive_radio_network_tpu_torch.signal.mlp import reference_weights
+    from cognitive_radio_network_tpu_torch.signal.msequence import msequence_bytes
+
+    known = msequence_bytes(256)
+    launches = {}
+
+    def run(cfg, **kw):
+        rt = ScenarioRuntime(cfg, **kw)
+        if rt.device.type == "cuda" and not all(
+                n.radio.device.type == "cuda" for n in rt.nodes if hasattr(n, "radio")):
+            raise AssertionError("a radio node is off the card")
+        t0 = time.perf_counter()
+        summary = rt.run()
+        wall = time.perf_counter() - t0
+        if rt.failed_nodes:
+            raise AssertionError(f"{cfg.name}: failed nodes {rt.failed_nodes}")
+        return rt, summary, wall
+
+    def intact(rt, idx):
+        for i in idx:
+            pk = rt.nodes[i].rx_packets
+            if not pk:
+                raise AssertionError(f"node {i} received no packet")
+            for _, _, p in pk:
+                if not np.array_equal(p[4:], known[4:]):
+                    raise AssertionError(f"node {i}: a payload differs from the m-sequence")
+
+    # 18. the two-node FDD link on the card, then its 0.25 s summary against the CPU run
+    run(link_scenario_cfg(0.05))  # builds the receiver's and the tx chain's caches
+    torch.cuda.synchronize()
+    reset_counts()
+    with HostBreakdown() as hb:
+        rt, summary, wall = run(link_scenario_cfg(LINK_SCN_S))
+    torch.cuda.synchronize()
+    launches["link"] = ops.extract_windows.launches
+    if launches["link"] < 1:
+        raise AssertionError("the link scenario did not launch the extract kernel")
+    intact(rt, (0, 1))
+    steps = round(rt.t / rt.medium_cfg.block_dt)
+    phase("scenario-link", f"{LINK_SCN_S} s on the card: packets {[len(n.rx_packets) for n in rt.nodes]} "
+          f"each way, all equal to msequence_bytes(256)[4:]; summary {dataclasses.asdict(summary)}; "
+          f"extract launches {launches['link']}, fused_sense_ct launches "
+          f"{ops.fused_sense_ct.launches}; wall {wall:.3f} s, realtime factor "
+          f"{LINK_SCN_S / wall:.4f} (steady {rt.steady_t / rt.steady_wall_time_s:.4f}); {smi}")
+    phase("scenario-link", hb.line(steps, rt.wall_time_s) + f"; {smi}")
+    n_ops, busy, idle = profile_steps(link_scenario_cfg(1.0))
+    phase("scenario-link", f"profiled 40 steps: {n_ops:.1f} device operations and {busy:.1f} us "
+          f"busy per step, device idle {idle:.1%} of the steps' host time; {smi}")
+    _, on_card, _ = run(link_scenario_cfg(0.25))
+    _, on_cpu, _ = run(link_scenario_cfg(0.25), device="cpu")
+    if dataclasses.asdict(on_card) != dataclasses.asdict(on_cpu):
+        raise AssertionError(f"link summary on the card {on_card} differs from the CPU run {on_cpu}")
+    phase("scenario-link", f"0.25 s: the card's ScenarioSummary equals the CPU run's "
+          f"(valid frames {on_card.valid_frames}, bytes received {on_card.bytes_received})")
+
+    # 19. scenarios/eight_node.cfg at its shipped widths
+    cfg8 = load_scenario(ROOT / "scenarios" / "eight_node.cfg")
+    cfg8.run_time = EIGHT_NODE_S
+    reset_counts()
+    with HostBreakdown() as hb:
+        rt, summary, wall = run(cfg8)
+    torch.cuda.synchronize()
+    launches["eight_node"] = ops.extract_windows.launches
+    if launches["eight_node"] < 1:
+        raise AssertionError("eight_node.cfg did not launch the extract kernel")
+    intact(rt, range(6))
+    steps = round(rt.t / rt.medium_cfg.block_dt)
+    phase("scenario-eight-node", f"{EIGHT_NODE_S} s ({steps} steps of {cfg8.medium_block_len} at "
+          f"{cfg8.medium_rate / 1e6:.0f} MS/s, rx_scan_blocks {cfg8.nodes[0].rx_scan_blocks}): "
+          f"packets {[len(n.rx_packets) for n in rt.nodes[:6]]}, all intact; valid frames "
+          f"{summary.valid_frames}; extract launches {launches['eight_node']}; wall {wall:.3f} s, "
+          f"realtime factor {EIGHT_NODE_S / wall:.4f} (steady "
+          f"{rt.steady_t / rt.steady_wall_time_s:.4f}); {smi}")
+    phase("scenario-eight-node", hb.line(steps, rt.wall_time_s) + f"; {smi}")
+    n_ops, busy, idle = profile_steps(load_scenario(ROOT / "scenarios" / "eight_node.cfg"))
+    phase("scenario-eight-node", f"profiled 40 steps: {n_ops:.1f} device operations and "
+          f"{busy:.1f} us busy per step, device idle {idle:.1%} of the steps' host time; {smi}")
+
+    # 20. scenarios/predictive_model.cfg as bench.py:452-467 runs it
+    scn = ROOT / "scenarios" / "predictive_model.cfg"
+    wcfg = load_scenario(scn)
+    wcfg.run_time = 0.5  # warm-up
+    run(wcfg)
+    scfg = load_scenario(scn)
+    scfg.run_time = PREDICTIVE_S
+    torch.cuda.synchronize()
+    reset_counts()
+    with HostBreakdown() as hb:
+        rt, summary, wall = run(scfg)
+    torch.cuda.synchronize()
+    eng = rt.nodes[1].engine
+    launches["predictive"] = ops.fused_sense_ct.launches
+    launches["predictive_extract"] = ops.extract_windows.launches
+    if not eng.decisions:
+        raise AssertionError("the predictive SU made no decision")
+    if launches["predictive"] != len(eng.decisions):
+        raise AssertionError(f"{launches['predictive']} fused_sense_ct launches for "
+                             f"{len(eng.decisions)} decisions: want one per decision")
+    factor = rt.steady_t / rt.steady_wall_time_s
+    steps = round(rt.t / rt.medium_cfg.block_dt)
+    phase("scenario-predictive", f"{PREDICTIVE_S} s after a 0.5 s warm-up: {len(eng.decisions)} "
+          f"decisions {dict(sorted(Counter(eng.decisions).items()))}, fused_sense_ct launches "
+          f"{launches['predictive']} (one per decision), extract launches "
+          f"{launches['predictive_extract']}; bytes sent {summary.bytes_sent}; wall {wall:.3f} s; "
+          f"scenario_realtime_factor = steady_t / steady_wall_time_s = {rt.steady_t:.4f} / "
+          f"{rt.steady_wall_time_s:.4f} = {factor:.4f}; {smi}")
+    phase("scenario-predictive", hb.line(steps, rt.wall_time_s) + f"; {smi}")
+    n_ops, busy, idle = profile_steps(load_scenario(scn), warm=20, steps=60)
+    phase("scenario-predictive", f"profiled 60 steps: {n_ops:.1f} device operations and "
+          f"{busy:.1f} us busy per step, device idle {idle:.1%} of the steps' host time; {smi}")
+    launches["predictive_factor"] = factor
+
+    # the CE_TX_CHANNEL_X -c 1 variant: the SU finds CH1 busy and moves to 835 MHz
+    vrt, _, _ = run(predictive_variant_cfg("-c 1"))
+    dec = vrt.nodes[1].engine.decisions
+    if not dec or Counter(dec).most_common(1)[0][0] != 1:
+        raise AssertionError(f"CE_TX_CHANNEL_X -c 1: decisions {dec}")
+    if vrt.nodes[1].radio.get_tx_freq() != 835e6:
+        raise AssertionError(f"SU tx ends at {vrt.nodes[1].radio.get_tx_freq()}, not 835 MHz")
+    # the same run on the CPU (plain versions): every decision equal, the MLP
+    # outputs within the golden gate's atol 2e-3
+    crt, _, _ = run(predictive_variant_cfg("-c 1"), device="cpu")
+    cpu_eng = crt.nodes[1].engine
+    if cpu_eng.decisions != dec:
+        raise AssertionError(f"CE_TX_CHANNEL_X -c 1: card decisions {dec} differ from the CPU "
+                             f"run's {cpu_eng.decisions}")
+    out_card = torch.stack(vrt.nodes[1].engine.outputs).cpu()
+    out_cpu = torch.stack(cpu_eng.outputs)
+    torch.testing.assert_close(out_card, out_cpu, rtol=0.0, atol=2e-3)
+    phase("scenario-predictive", f"CE_TX_CHANNEL_X -c 1: decisions {dec}, equal to the CPU run's; "
+          f"MLP outputs max abs err {(out_card - out_cpu).abs().max().item():.3e} (atol 2e-3); "
+          f"SU tx {vrt.nodes[1].radio.get_tx_freq() / 1e6:.0f} MHz")
+
+    # one classify call of the SU's engine (upload, sense kernel, MLP, one read)
+    buffers = [np.asarray(b) for b in eng.buffers] or [
+        (np.random.default_rng(0).standard_normal(512) * 1e-3).astype(np.complex64)
+        for _ in range(eng.cfg.averaging)]
+    buffers = (buffers * eng.cfg.averaging)[: eng.cfg.averaging]
+
+    def classify():
+        eng.buffers = list(buffers)
+        eng._classify_and_act()
+
+    wall_ms, n_ops, busy, kern = profiled(classify, "classify", "fused_sense_ct_kernel")
+    phase("sense-profile", f"one CEPredictiveNode classify (C=1: one upload, kernel, MLP, "
+          f"decision, one .item()): {wall_ms:.4f} ms by host clock, {n_ops:.1f} device "
+          f"operations, {busy:.1f} us busy ({kern:.1f} us the kernel), device idle "
+          f"{1 - busy / (wall_ms * 1e3):.1%}; {smi}")
+
+    # the sense path at C=4096, C=256 and the engine's C=1, device-resident input
+    cfg = SenseConfig()
+    fn = make_sense_fn(cfg)
+    params = reference_weights(device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for c in (CYCLES, CLI_CYCLES, 1):
+        xr = torch.randn(c * cfg.averaging, cfg.fft_length, generator=gen, device="cuda")
+        xi = torch.randn(c * cfg.averaging, cfg.fft_length, generator=gen, device="cuda")
+        wall_ms, n_ops, busy, kern = profiled(lambda: fn((xr, xi), params), f"sense_c{c}",
+                                              "fused_sense_ct_kernel")
+        phase("sense-profile", f"make_sense_fn C={c}: {wall_ms:.4f} ms per synchronized call by "
+              f"host clock, {n_ops:.1f} device operations, {busy:.1f} us busy, of which the "
+              f"kernel {kern:.1f} us and the epilogue {busy - kern:.1f} us "
+              f"({(busy - kern) / busy:.1%} of busy), device idle "
+              f"{1 - busy / (wall_ms * 1e3):.1%}; {smi}")
+    return launches
 
 
 def main() -> int:
@@ -1250,9 +1616,18 @@ def main() -> int:
             torch.randn(c * a, n, generator=gen, device=dev),
         )
 
+    def engine_planes():
+        # the predictive engine's own C=1 input: ten complex buffers stacked on
+        # the host, one upload, the kernel given two views of it
+        # (engines/predictive_node.py::_classify_and_act)
+        rng = np.random.default_rng(1)
+        stack = (rng.standard_normal((a, n)) + 1j * rng.standard_normal((a, n))).astype(np.complex64)
+        both = torch.from_numpy(np.stack([stack.real, stack.imag]).astype(np.float32)).to(dev)
+        return both[0], both[1]
+
     max_abs_err = 0.0
-    for c in (CYCLES, 5):
-        xr, xi = planes(c)
+    for c, make in ((CYCLES, lambda: planes(CYCLES)), (5, lambda: planes(5)), (1, engine_planes)):
+        xr, xi = make()
         avg_k, feats_k = fused_sense_ct(xr, xi, averaging=a)
         avg_p, feats_p = fused_sense_ct_plain(xr, xi, averaging=a)
         torch.cuda.synchronize()
@@ -1261,7 +1636,8 @@ def main() -> int:
         err = (avg_k - avg_p).abs().max().item()
         max_abs_err = max(max_abs_err, err)
         frel = ((feats_k - feats_p).abs() / feats_p.abs()).max().item()
-        phase("kernel-vs-plain", f"f32 C={c}: avg max abs err {err:.3e} (rtol 1e-4, atol 1e-5), "
+        what = " (views of one (2, 10, 512) upload, as the engine gives them)" if c == 1 else ""
+        phase("kernel-vs-plain", f"f32 C={c}{what}: avg max abs err {err:.3e} (rtol 1e-4, atol 1e-5), "
               f"feats max rel err {frel:.3e} (rtol 1e-4)")
     xr, xi = planes(CYCLES)
     _, feats_f32 = fused_sense_ct_plain(xr, xi, averaging=a)
@@ -1410,6 +1786,7 @@ def main() -> int:
     new_entries = wideband_and_dense_phases(dev, smi, planar, trace, params)
     del planar
     resolve_entry, stream_extract = stream_phases(dev, smi)
+    scn = scenario_phases(smi)
     extract_entry.update(stream_extract)
     extract_entry["max_abs_err"] = max(
         extract_entry["max_abs_err"], stream_extract["stream_step_max_abs_err"])
@@ -1426,7 +1803,11 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # FFT + magnitude + mean + band sums: no single PyTorch call
+        "scenario_launches": {"predictive_model.cfg": scn["predictive"]},
     }, extract_entry, *new_entries, resolve_entry]
+    extract_entry["scenario_launches"] = {
+        "two_node_link": scn["link"], "eight_node.cfg": scn["eight_node"],
+        "predictive_model.cfg": scn["predictive_extract"]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -12,11 +12,12 @@ plain PyTorch version by the device of the tensor it is given
 (:mod:`.utils.device`).
 
 Ported so far (the sense->classify main path, the OFDM link with its
-fixed-config and adaptive streaming receivers, and the one-device 64-channel
-wideband detector):
+fixed-config and adaptive streaming receivers, the one-device 64-channel
+wideband detector, and the in-process scenario runtime):
 
 signal    IQ layouts, DFT spectra, band features, the sigmoid MLP, detector,
-          filter design, m-sequences, the polyphase channelizer
+          filter design, m-sequences, the polyphase channelizer, rational
+          resampling
 ops       ``fused_sense_ct``: 512-point FFT -> |X| -> mean over buffers ->
           band sums, squared; ``extract_windows``: K windows of two IQ
           planes at dynamic offsets; ``wideband_energy_fused``: polyphase
@@ -32,8 +33,12 @@ phy       bits, CRC, FEC, modem, subcarrier allocations, ``OFDMFrameGen``,
           ``OFDMFrameSync`` (detect, demod, decode, block receive),
           ``StreamReceiver`` (per-frame configs from the PHY header; host and
           device-resident streaming)
-env       Markov/random PU traces, scene synthesis, channel impairments
+env       Markov/random PU traces, scene synthesis, channel impairments,
+          interferer waveforms
 io        recorded-IQ captures and MLP checkpoints (same file formats)
+runtime   ``ScenarioRuntime``: configs, the simulated medium, radios, nodes,
+          the control channel, logs; ``engines`` and ``controllers`` hold
+          the cognitive engines and scenario controllers
 
 Submodules are not imported here; import what you use.
 """

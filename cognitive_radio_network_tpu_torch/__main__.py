@@ -1,12 +1,17 @@
-"""CLI entry of the port (the ``sense`` subcommand of the reference CLI).
+"""CLI entry of the port (the ``crts_controller`` equivalent).
 
+    python -m cognitive_radio_network_tpu_torch scenario scenarios/predictive_model.cfg
+    python -m cognitive_radio_network_tpu_torch master scenarios/scenario_master_template.cfg
+    python -m cognitive_radio_network_tpu_torch engines
     python -m cognitive_radio_network_tpu_torch sense capture.iq -o out.npz
-    python -m cognitive_radio_network_tpu_torch sense capture.iq --device cpu
 
-Streams a recorded IQ capture through sense->classify in dispatches of
-``--cycles-per-dispatch`` cycles on ``--device`` (default ``cuda``; there is
-no fallback to the CPU when no card is found).  The other subcommands of
-``python -m cognitive_radio_network_tpu`` are not ported yet.
+``scenario`` and ``master`` run scenarios in-process against the simulated
+medium and write structured logs (npz + Octave export) under ``--log-dir``;
+``sense`` streams a recorded IQ capture through sense->classify in
+dispatches of ``--cycles-per-dispatch`` cycles.  Each runs on ``--device``
+(default ``cuda``; there is no fallback to the CPU when no card is found).
+The reference's distributed runs (``scenario -d`` and ``node``), ``train``,
+``spectrum``, ``export`` and ``radio-host`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -108,9 +113,77 @@ def _cmd_sense(args) -> int:
     return 0
 
 
+def _cmd_runtime(args) -> int:
+    """``scenario``, ``master`` and ``engines``: the in-process runtime."""
+    from cognitive_radio_network_tpu_torch.runtime import (
+        MasterConfig,
+        controller_names,
+        engine_names,
+        load_master,
+        load_scenario,
+        run_master,
+    )
+
+    if args.cmd == "engines":
+        print("cognitive engines:", ", ".join(engine_names()))
+        print("scenario controllers:", ", ".join(controller_names()))
+        return 0
+    if args.cmd == "scenario":
+
+        def _load(name):
+            c = load_scenario(args.path)
+            if args.run_time is not None:
+                c.run_time = args.run_time
+            return c
+
+        master = MasterConfig(
+            scenarios=[(_load(None).name, args.reps)], octave_log_summary=True
+        )
+        runs = run_master(master, _load, args.log_dir, device=args.device)
+    else:
+        master = load_master(args.path)
+        base = Path(args.path).parent
+        runs = run_master(
+            master,
+            lambda name: load_scenario(base / f"{name}.cfg"),
+            args.log_dir,
+            device=args.device,
+        )
+    any_failed = False
+    for s, failed in runs:
+        print(
+            f"{s.scenario} rep {s.rep}: bytes_sent={s.bytes_sent} "
+            f"bytes_received={s.bytes_received} valid_frames={s.valid_frames}"
+        )
+        for idx, err in sorted(failed.items()):
+            print(f"{s.scenario} rep {s.rep}: node {idx} failed: {err}", file=sys.stderr)
+        any_failed = any_failed or bool(failed)
+    return 1 if any_failed else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="cognitive_radio_network_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    def device_arg(p):
+        p.add_argument(
+            "--device", default="cuda", help="torch device to run on (default: cuda)"
+        )
+
+    sp = sub.add_parser("scenario", help="run one scenario file")
+    sp.add_argument("path")
+    sp.add_argument("-r", "--reps", type=int, default=1)
+    sp.add_argument("-l", "--log-dir", default="logs")
+    sp.add_argument("-t", "--run-time", type=float, default=None)
+    device_arg(sp)
+
+    mp = sub.add_parser("master", help="run a master scenario list")
+    mp.add_argument("path")
+    mp.add_argument("-l", "--log-dir", default="logs")
+    device_arg(mp)
+
+    sub.add_parser("engines", help="list registered engines/controllers")
+
     sn = sub.add_parser(
         "sense",
         help="stream a recorded IQ capture through the fused sense->classify "
@@ -123,11 +196,11 @@ def main(argv=None) -> int:
     sn.add_argument(
         "-w", "--weights", default=None, help="trained MLP checkpoint (npz)"
     )
-    sn.add_argument(
-        "--device", default="cuda", help="torch device to sense on (default: cuda)"
-    )
+    device_arg(sn)
     args = ap.parse_args(argv)
-    return _cmd_sense(args)
+    if args.cmd == "sense":
+        return _cmd_sense(args)
+    return _cmd_runtime(args)
 
 
 if __name__ == "__main__":

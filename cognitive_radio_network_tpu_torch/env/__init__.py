@@ -1,5 +1,6 @@
 """Synthetic RF environment: PU hopping processes, channel impairments and
-scene composition.  The interferer waveforms are not ported yet."""
+scene composition.  The interferer waveforms (``env.interference``) are
+imported by their module path."""
 
 from cognitive_radio_network_tpu_torch.env.channel import awgn, mix_to_offset
 from cognitive_radio_network_tpu_torch.env.pu import (

@@ -295,11 +295,30 @@ class OFDMFrameGen:
         modulation, the IFFT, the cyclic prefix and the taper run on
         ``device``.
         """
-        device = torch.device(device)
         headers = np.atleast_2d(np.asarray(headers, np.uint8))
         payloads = np.atleast_2d(np.asarray(payloads, np.uint8))
-        hdr_bits = torch.from_numpy(self.encode_header_batch(headers)).to(device)
-        pay_bits = torch.from_numpy(self.encode_payload_batch(payloads)).to(device)
+        return self.assemble_bits(
+            self.encode_header_batch(headers),
+            self.encode_payload_batch(payloads),
+            as_planes=as_planes,
+            device=device,
+        )
+
+    def assemble_bits(
+        self,
+        hdr_bits: np.ndarray,
+        pay_bits: np.ndarray,
+        *,
+        as_planes: bool = False,
+        device: torch.device | str = "cuda",
+    ) -> torch.Tensor:
+        """:meth:`assemble` from coded bits: ``hdr_bits`` (B, n_header_bits)
+        and ``pay_bits`` (B, payload_enc_bytes*8) as ``encode_header_batch``
+        and ``encode_payload_batch`` give them (host arrays, copied to
+        ``device`` once each)."""
+        device = torch.device(device)
+        hdr_bits = torch.as_tensor(hdr_bits).to(device)
+        pay_bits = torch.as_tensor(pay_bits).to(device)
         cfg = self.cfg
         m, cp = cfg.num_subcarriers, cfg.cp_len
         nd = len(self.data_idx)

@@ -2,8 +2,8 @@
 
 Port of ``cognitive_radio_network_tpu/signal`` with the same numerical
 contracts (CE_Predictive_Node.cpp:146-235).  ``msequence`` (the PRBS of the
-OFDM preambles and pilots) is imported by its module path.  Resampling is
-not ported yet.
+OFDM preambles and pilots) and ``resample`` (rational polyphase resampling
+for the runtime's radios) are imported by their module paths.
 """
 
 from cognitive_radio_network_tpu_torch.signal import filters

@@ -14,12 +14,24 @@ import contextlib
 
 import torch
 
-__all__ = ["on_cuda", "full_f32"]
+__all__ = ["on_cuda", "full_f32", "require_device"]
 
 
 def on_cuda(t: torch.Tensor) -> bool:
     """True when ``t`` lies on a CUDA device (kernel path), else plain path."""
     return t.device.type == "cuda"
+
+
+def require_device(device) -> torch.device:
+    """``device`` as a ``torch.device``, after proving that it exists: an
+    empty tensor is made there, so a ``"cuda"`` device raises on a machine
+    with no card instead of letting a caller carry on elsewhere."""
+    device = torch.device(device)
+    try:
+        torch.empty(0, device=device)
+    except (AssertionError, RuntimeError) as e:  # torch's "not compiled with CUDA" is an assert
+        raise RuntimeError(f"device {device} is not available here: {e}") from e
+    return device
 
 
 @contextlib.contextmanager

@@ -42,7 +42,31 @@ def test_port_modules_load_without_jax():
         "cognitive_radio_network_tpu_torch.ops.resolve, "
         "cognitive_radio_network_tpu_torch.ops._sense, "
         "cognitive_radio_network_tpu_torch.profile_resolve, "
-        "cognitive_radio_network_tpu_torch.phy.stream\n"
+        "cognitive_radio_network_tpu_torch.phy.stream, "
+        "cognitive_radio_network_tpu_torch.signal.resample, "
+        "cognitive_radio_network_tpu_torch.env.interference, "
+        "cognitive_radio_network_tpu_torch.runtime, "
+        "cognitive_radio_network_tpu_torch.runtime.engine, "
+        "cognitive_radio_network_tpu_torch.runtime.scenario, "
+        "cognitive_radio_network_tpu_torch.runtime.config, "
+        "cognitive_radio_network_tpu_torch.runtime.stats, "
+        "cognitive_radio_network_tpu_torch.runtime.traffic, "
+        "cognitive_radio_network_tpu_torch.runtime.logging, "
+        "cognitive_radio_network_tpu_torch.runtime.medium, "
+        "cognitive_radio_network_tpu_torch.runtime.radio, "
+        "cognitive_radio_network_tpu_torch.runtime.node, "
+        "cognitive_radio_network_tpu_torch.runtime.control, "
+        "cognitive_radio_network_tpu_torch.runtime.controller, "
+        "cognitive_radio_network_tpu_torch.engines, "
+        "cognitive_radio_network_tpu_torch.engines.template, "
+        "cognitive_radio_network_tpu_torch.engines.random_pu, "
+        "cognitive_radio_network_tpu_torch.engines.tx_channel_x, "
+        "cognitive_radio_network_tpu_torch.engines.markov_pu, "
+        "cognitive_radio_network_tpu_torch.engines.predictive_node, "
+        "cognitive_radio_network_tpu_torch.controllers, "
+        "cognitive_radio_network_tpu_torch.controllers.template\n"
+        "from cognitive_radio_network_tpu_torch.runtime import engine_names, controller_names\n"
+        "assert len(engine_names()) == 5 and controller_names() == ['SC_Template']\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cognitive_radio_network_tpu')]\n"
         "assert not bad, bad\n"
