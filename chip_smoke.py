@@ -7,7 +7,9 @@ Runs from the root of a checkout and needs one CUDA card.  Each phase prints
 one line; any failure raises, and the exit code is then non-zero.
 
 1. device and build: the card's name and power limit; builds the kernels of
-   ``cognitive_radio_network_tpu_torch/csrc`` into ``build/kernels``.
+   ``cognitive_radio_network_tpu_torch/csrc`` into ``build/kernels`` and the
+   native runtime library (``native/src``, g++) into ``build/native``, which
+   must load.
 2. kernel vs plain: ``fused_sense_ct`` against ``fused_sense_ct_plain`` on
    the same card (TF32 off) at C=4096 and C=5 cycles (f32 input), at the
    predictive engine's C=1 on two views of one (2, 10, 512) upload, and with
@@ -19,7 +21,8 @@ one line; any failure raises, and the exit code is then non-zero.
    launch count must rise, decisions must track the PU channel and the tx
    trace must follow the retune policy.
 5. CLI: a 4096-cycle capture through ``python -m
-   cognitive_radio_network_tpu_torch sense`` at 256 cycles per dispatch.
+   cognitive_radio_network_tpu_torch sense`` at 256 cycles per dispatch,
+   ingested by the native prefetcher.
 6. times: median of 3 for the kernel and the plain version at C=4096 and
    C=256, with CUDA events, and for the kernel on bf16 input at C=4096; GB/s
    read and the share of 3.35 TB/s beside each bound.
@@ -113,6 +116,19 @@ one line; any failure raises, and the exit code is then non-zero.
    a profiler trace of one classify call, and of the sense path at C=4096,
    C=256 and C=1 (device operations, busy time, the kernel's and the
    epilogue's share, idle share).
+21. the two-node link of phase 18 distributed (``NetController(...,
+   device="cuda", transport="native")``: a controller here, one node process
+   per node on the card) for 0.25 s: the summary equal to phase 18's
+   in-process one, each node reporting ``extract_windows`` launches.
+22. ``scenarios/eight_node.cfg -d`` for 2.0 s (the reference bench's 16.0 s,
+   bench.py:516, cut to phase 19's length): eight node processes on one
+   card; the summary equal to phase 19's, bytes received by every radio, a
+   summary from every node; the realtime factor of the steady window, the
+   per-node CPU margin (``max_node_cpu_per_sim_s``), CPU ms per step of each
+   node, extract launches per node and the wall time.
+23. ``scenarios/predictive_model.cfg -d``: a 2.0 s warm run, then 12.0 s (the
+   reference bench's 40.0 s, bench.py:478-488, cut): the SU's node reports
+   ``fused_sense_ct`` launches; the distributed realtime factor.
 
 The line before the last is a JSON object with each kernel's launches on its
 path, error, times and bound (the least time the card could take: bytes moved
@@ -158,6 +174,9 @@ APPLY_BATCH, APPLY_T = 4, 65_536  # the batch of streams of the apply step
 LINK_SCN_S = 1.0  # sim seconds of the two-node link scenario
 EIGHT_NODE_S = 2.0  # sim seconds of scenarios/eight_node.cfg (bench.py:512-513)
 PREDICTIVE_S = 12.0  # sim seconds of scenarios/predictive_model.cfg (bench.py:458)
+DIST_EIGHT_NODE_S = 2.0  # the reference bench runs 16.0 (bench.py:516); cut to phase 19's length
+DIST_PREDICTIVE_WARM_S, DIST_PREDICTIVE_S = 2.0, 12.0  # bench.py:478-488 runs 2.0, then 40.0
+DIST_PORT = 47760  # TCP ports 47760-47763 of the distributed phases
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate
 FP32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
 
@@ -1376,7 +1395,8 @@ def profile_steps(cfg, warm: int = 20, steps: int = 40) -> tuple[float, float, f
 
 def scenario_phases(smi: str) -> dict:
     """Phases 18-20: the in-process scenario runtime on the card.  Returns
-    the launches of the sense and extract kernels on each scenario path."""
+    the launches of the sense and extract kernels on each scenario path, and
+    the summaries the distributed phases are held to."""
     import dataclasses
     from collections import Counter
 
@@ -1438,6 +1458,7 @@ def scenario_phases(smi: str) -> dict:
     _, on_cpu, _ = run(link_scenario_cfg(0.25), device="cpu")
     if dataclasses.asdict(on_card) != dataclasses.asdict(on_cpu):
         raise AssertionError(f"link summary on the card {on_card} differs from the CPU run {on_cpu}")
+    launches["link_summary"] = on_card
     phase("scenario-link", f"0.25 s: the card's ScenarioSummary equals the CPU run's "
           f"(valid frames {on_card.valid_frames}, bytes received {on_card.bytes_received})")
 
@@ -1449,6 +1470,7 @@ def scenario_phases(smi: str) -> dict:
         rt, summary, wall = run(cfg8)
     torch.cuda.synchronize()
     launches["eight_node"] = ops.extract_windows.launches
+    launches["eight_node_summary"] = summary
     if launches["eight_node"] < 1:
         raise AssertionError("eight_node.cfg did not launch the extract kernel")
     intact(rt, range(6))
@@ -1553,6 +1575,111 @@ def scenario_phases(smi: str) -> dict:
     return launches
 
 
+def distributed_run(cfg, port: int, **kw):
+    """``cfg`` through a ``NetController`` on the card: one node process per
+    node.  Raises if a node died, stalled or sent no summary.  Returns the
+    controller, its summary and the run's wall time."""
+    from cognitive_radio_network_tpu_torch.runtime.netctl import NetController
+
+    ctl = NetController(cfg, port=port, start_pad_s=1.0, device="cuda", **kw)
+    t0 = time.perf_counter()
+    summary = ctl.run()
+    wall = time.perf_counter() - t0
+    if ctl.terminated or sorted(ctl.summaries) != list(range(len(cfg.nodes))):
+        raise AssertionError(f"{cfg.name} -d: terminated {ctl.terminated}, summaries from nodes "
+                             f"{sorted(ctl.summaries)} of {len(cfg.nodes)}")
+    return ctl, summary, wall
+
+
+def node_lines(ctl, block_dt: float) -> str:
+    """Per node: CPU ms per simulated step of the steady window, and the
+    kernels it launched."""
+    out = []
+    for i, s in sorted(ctl.summaries.items()):
+        steps = s["sim_time_s"] / block_dt
+        used = {k: v for k, v in s["launches"].items() if v}
+        out.append(f"node {i}: {s['cpu_time_s'] / steps * 1e3:.3f} CPU ms/step, launches {used}")
+    return "; ".join(out)
+
+
+def node_margin(ctl) -> float:
+    """max_node_cpu_per_sim_s (bench.py:502-510): the busiest node's CPU
+    seconds per simulated second of the steady window."""
+    sums = ctl.summaries.values()
+    return max(s["cpu_time_s"] for s in sums) / max(s["sim_time_s"] for s in sums)
+
+
+def distributed_phases(smi: str, inproc: dict) -> dict:
+    """Phases 21-23: the distributed runtime on the card, each node its own
+    process.  Returns the kernels' launches in the node processes."""
+    import dataclasses
+
+    from cognitive_radio_network_tpu_torch.runtime import load_scenario
+
+    launches = {}
+
+    # 21. the two-node link of phase 18, distributed, against its in-process summary
+    ctl, summary, wall = distributed_run(link_scenario_cfg(0.25), DIST_PORT, transport="native")
+    if dataclasses.asdict(summary) != dataclasses.asdict(inproc["link_summary"]):
+        raise AssertionError(f"distributed link summary {summary} differs from the in-process "
+                             f"run's {inproc['link_summary']}")
+    launches["link"] = [ctl.summaries[i]["launches"]["extract_windows"] for i in (0, 1)]
+    if min(launches["link"]) < 1:
+        raise AssertionError(f"link -d: a node launched no extract kernel ({launches['link']})")
+    phase("distributed-link", f"0.25 s, 2 node processes on the card, native transport: the "
+          f"summary equals phase 18's in-process one (valid frames {summary.valid_frames}); "
+          f"extract launches per node {launches['link']}; wall {wall:.3f} s of which the "
+          f"lockstep loop {ctl.wall_time_s:.3f}; {node_lines(ctl, ctl.mcfg.block_dt)}; {smi}")
+
+    # 22. scenarios/eight_node.cfg -d at its shipped widths
+    cfg8 = load_scenario(ROOT / "scenarios" / "eight_node.cfg")
+    cfg8.run_time = DIST_EIGHT_NODE_S
+    ctl, summary, wall = distributed_run(cfg8, DIST_PORT + 1)
+    want = inproc["eight_node_summary"]
+    if dataclasses.asdict(summary) != dataclasses.asdict(want):
+        raise AssertionError(f"eight_node.cfg -d summary {summary} differs from phase 19's {want}")
+    if min(summary.bytes_received[:6]) <= 0:
+        raise AssertionError(f"eight_node.cfg -d: a radio received nothing {summary.bytes_received}")
+    launches["eight_node"] = [ctl.summaries[i]["launches"]["extract_windows"] for i in range(8)]
+    if min(launches["eight_node"][:6]) < 1:
+        raise AssertionError(f"eight_node.cfg -d: a radio launched no extract kernel "
+                             f"({launches['eight_node']})")
+    factor = ctl.steady_t / ctl.steady_wall_time_s
+    steps = round(ctl.t / ctl.mcfg.block_dt)
+    phase("distributed-eight-node", f"{DIST_EIGHT_NODE_S} s ({steps} steps), 8 node processes "
+          f"on one card, transport {ctl.tcls.__name__}: the summary equals phase 19's (bytes "
+          f"received {summary.bytes_received}); distributed_realtime_factor_8node = steady_t / "
+          f"steady_wall_time_s = {ctl.steady_t:.4f} / {ctl.steady_wall_time_s:.4f} = "
+          f"{factor:.4f}; max_node_cpu_per_sim_s {node_margin(ctl):.4f}; controller wall "
+          f"{ctl.wall_time_s / steps * 1e3:.3f} ms per step; wall {wall:.3f} s of which the "
+          f"lockstep loop {ctl.wall_time_s:.3f}; extract launches per node "
+          f"{launches['eight_node']}; {smi}")
+    phase("distributed-eight-node", node_lines(ctl, ctl.mcfg.block_dt) + f"; {smi}")
+    launches["eight_node_factor"], launches["eight_node_margin"] = factor, node_margin(ctl)
+
+    # 23. scenarios/predictive_model.cfg -d: a warm run, then the timed one
+    scn = ROOT / "scenarios" / "predictive_model.cfg"
+    wcfg = load_scenario(scn)
+    wcfg.run_time = DIST_PREDICTIVE_WARM_S
+    _, _, warm_wall = distributed_run(wcfg, DIST_PORT + 2)
+    dcfg = load_scenario(scn)
+    dcfg.run_time = DIST_PREDICTIVE_S
+    ctl, summary, wall = distributed_run(dcfg, DIST_PORT + 3)
+    launches["predictive"] = ctl.summaries[1]["launches"]["fused_sense_ct"]
+    if launches["predictive"] < 1:
+        raise AssertionError("predictive_model.cfg -d: the SU's node launched no sense kernel")
+    factor = ctl.steady_t / ctl.steady_wall_time_s
+    phase("distributed-predictive", f"{DIST_PREDICTIVE_WARM_S} s warm run ({warm_wall:.3f} s "
+          f"wall), then {DIST_PREDICTIVE_S} s: SU node fused_sense_ct launches "
+          f"{launches['predictive']}; bytes sent {summary.bytes_sent}; "
+          f"distributed_realtime_factor = steady_t / steady_wall_time_s = {ctl.steady_t:.4f} / "
+          f"{ctl.steady_wall_time_s:.4f} = {factor:.4f}; max_node_cpu_per_sim_s "
+          f"{node_margin(ctl):.4f}; wall {wall:.3f} s of which the lockstep loop "
+          f"{ctl.wall_time_s:.3f}; {node_lines(ctl, ctl.mcfg.block_dt)}; {smi}")
+    launches["predictive_factor"] = factor
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1565,6 +1692,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "tests"))  # golden_reference.py: numpy only
     import golden_reference as gold
 
+    from cognitive_radio_network_tpu_torch import native
     from cognitive_radio_network_tpu_torch.env import markov_pu_trace
     from cognitive_radio_network_tpu_torch.env.scene import occupancy_to_powers, synthesize_scene
     from cognitive_radio_network_tpu_torch.io.iq import IQWriter
@@ -1606,6 +1734,11 @@ def main() -> int:
                 phase("build", line.strip())
     _build.load()
     phase("build", f"{lib_path.relative_to(ROOT)} ready in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native runtime library did not build or load")
+    phase("build", f"native runtime library {native.library_path().relative_to(ROOT)} loaded "
+          f"in {time.perf_counter() - t0:.1f} s")
 
     # 2. kernel vs plain on the card
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1733,6 +1866,9 @@ def main() -> int:
             cli_dec = d["decision"]
         if cli_dec.shape != (CYCLES,) or not np.array_equal(cli_dec, dec):
             raise AssertionError(f"CLI decisions {cli_dec.shape} differ from the main path's")
+        if "through the native prefetcher" not in proc.stdout:
+            raise AssertionError(f"the sense CLI did not ingest through the native prefetcher: "
+                                 f"{proc.stdout}")
         phase("cli", f"{len(cli_dec)} decisions, equal to the main path's, in {cli_s:.1f} s "
               f"(process included): {proc.stdout.strip().splitlines()[0]}")
     finally:
@@ -1787,6 +1923,7 @@ def main() -> int:
     del planar
     resolve_entry, stream_extract = stream_phases(dev, smi)
     scn = scenario_phases(smi)
+    dist = distributed_phases(smi, scn)
     extract_entry.update(stream_extract)
     extract_entry["max_abs_err"] = max(
         extract_entry["max_abs_err"], stream_extract["stream_step_max_abs_err"])
@@ -1803,11 +1940,13 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # FFT + magnitude + mean + band sums: no single PyTorch call
-        "scenario_launches": {"predictive_model.cfg": scn["predictive"]},
+        "scenario_launches": {"predictive_model.cfg": scn["predictive"],
+                              "predictive_model.cfg -d, SU node": dist["predictive"]},
     }, extract_entry, *new_entries, resolve_entry]
     extract_entry["scenario_launches"] = {
         "two_node_link": scn["link"], "eight_node.cfg": scn["eight_node"],
-        "predictive_model.cfg": scn["predictive_extract"]}
+        "predictive_model.cfg": scn["predictive_extract"],
+        "two_node_link -d, per node": dist["link"], "eight_node.cfg -d, per node": dist["eight_node"]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -8,8 +8,8 @@ resume their sample cursor mid-file — the stream analog of training-step
 checkpointing for long captures.
 
 Copied from ``cognitive_radio_network_tpu/io/iq.py`` (numpy only), so the
-two packages read and write byte-identical captures.  The native prefetching
-reader (``IQReader.prefetch_blocks``) is not carried over yet.
+two packages read and write byte-identical captures;
+``IQReader.prefetch_blocks`` streams through the port's native prefetcher.
 """
 
 from __future__ import annotations
@@ -109,3 +109,27 @@ class IQReader:
             if b is None or len(b) < block_len:
                 return
             yield b
+
+    def prefetch_blocks(self, block_len: int, *, depth: int = 8, loop: bool = False):
+        """Like :meth:`blocks`, but through the native prefetching stream
+        (mmap + slab ring + background reader thread, native/src/iq_stream.cpp)
+        when the native library is available, so the consumer — typically the
+        host loop feeding the card — never blocks on file I/O.  Falls back to
+        the synchronous Python reader.  Keeps ``self.cursor`` resumable."""
+        from cognitive_radio_network_tpu_torch import native
+
+        if not native.available():
+            if loop:
+                raise NotImplementedError("loop=True requires the native stream")
+            yield from self.blocks(block_len)
+            return
+        with native.NativeIQStream(
+            self.path,
+            block_len,
+            depth=depth,
+            start_sample=self.cursor.sample_index,
+            loop=loop,
+        ) as s:
+            for b in s.blocks():
+                self.cursor.sample_index = s.cursor
+                yield b

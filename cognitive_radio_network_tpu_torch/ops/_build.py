@@ -2,7 +2,8 @@
 
 The sources compile at first use into ``build/kernels/`` at the root of the
 checkout, under a name keyed by a hash of the sources and flags, so an edit
-rebuilds and an unchanged tree reuses the library.  The library has a plain
+rebuilds and an unchanged tree reuses the library; N processes that start on
+a fresh checkout run one ``nvcc`` (``utils/build.py``).  The library has a plain
 C interface: no PyTorch headers, so a build takes seconds, not minutes.
 Pointers and the stream pass as ``c_void_p``, ints as ``c_int`` (64-bit
 lengths as ``c_longlong``, a threshold as ``c_float``); each entry
@@ -20,6 +21,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from cognitive_radio_network_tpu_torch.utils.build import build_once
 
 __all__ = ["NVCC_FLAGS", "build", "library_path", "load"]
 
@@ -80,30 +83,29 @@ def library_path() -> Path:
     return _BUILD_DIR / f"libcrn_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build(out: Path, extra_flags: tuple[str, ...] = ()) -> subprocess.CompletedProcess:
-    """Compile every ``csrc/*.cu`` into ``out``; raises with nvcc's output on failure.
-
-    The library is written under a temporary name and renamed into place, so
-    a concurrent loader never sees a partial file."""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+def _compile(tmp: Path, extra_flags: tuple[str, ...] = ()) -> subprocess.CompletedProcess:
+    """One nvcc call over every ``csrc/*.cu`` into ``tmp``; raises with nvcc's output on failure."""
     cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), *map(str, _sources())]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
         raise RuntimeError(
             f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
         )
-    os.replace(tmp, out)
     return proc
+
+
+def build(out: Path, extra_flags: tuple[str, ...] = ()) -> subprocess.CompletedProcess | None:
+    """Compile every ``csrc/*.cu`` into ``out`` unless it exists (``utils/build.py``:
+    one build however many processes ask, under a lock in ``build/kernels/``,
+    renamed into place).  Returns nvcc's result, or None when ``out`` was there."""
+    return build_once(out, lambda tmp: _compile(tmp, extra_flags))
 
 
 @functools.lru_cache(maxsize=1)
 def load() -> ctypes.CDLL:
     """The kernel library, built first if this tree's sources have no build yet."""
     path = library_path()
-    if not path.exists():
-        build(path)
+    build(path)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

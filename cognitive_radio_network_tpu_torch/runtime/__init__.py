@@ -5,10 +5,10 @@ Replaces the reference's multi-process TCP/ssh control plane
 block-stepped medium, event-driven engines, scenario controllers, traffic
 models, sliding-window statistics, and structured logging with Octave export.
 
-Port of ``cognitive_radio_network_tpu/runtime``: the in-process runtime,
-with its device work on the caller's ``device`` (the card by default).  The
-reference's multi-process runtime (netctl) and process-isolated radios
-(procradio) are not ported yet.
+Port of ``cognitive_radio_network_tpu/runtime``, with its device work on
+the caller's ``device`` (the card by default): the in-process runtime here;
+the multi-process TCP star in ``runtime/netctl.py`` and process-isolated
+radios in ``runtime/procradio.py``.
 """
 
 from cognitive_radio_network_tpu_torch.runtime.engine import (

@@ -150,9 +150,9 @@ class ScenarioConfig:
     # wall-clock guard (reference: run_time + 10 s forceful termination,
     # src/crts_controller.cpp:524-527); None disables
     max_wall_time_s: float | None = None
-    # multi-process lockstep patience of the reference's distributed runtime
-    # (runtime/netctl.py, not ported yet): how long controller/node wait for
-    # the peer's next TX/RX_BLOCK
+    # multi-process lockstep patience of the distributed runtime
+    # (runtime/netctl.py): how long controller/node wait for the peer's next
+    # TX/RX_BLOCK
     net_step_timeout_s: float = 120.0
     # multi-process tx pipelining: node processes speculatively assemble
     # block N+1 while the controller still works on block N.  A CE/control

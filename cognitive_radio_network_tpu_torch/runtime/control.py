@@ -1,10 +1,10 @@
 """Shared node construction + control/feedback parameter application.
 
-Port of ``cognitive_radio_network_tpu/runtime/control.py``, used by the
-in-process :class:`ScenarioRuntime` (runtime/controller.py); the reference's
-multi-process networked runtime (runtime/netctl.py) and third-party radios
-in their own process (runtime/procradio.py) are not ported yet.  The control
-mapping is the node side's ``apply_control_msg`` (src/crts_cognitive_radio.cpp:127-206,
+Port of ``cognitive_radio_network_tpu/runtime/control.py``, used by both
+scenario runtimes: the in-process :class:`ScenarioRuntime`
+(runtime/controller.py) and the multi-process networked runtime
+(runtime/netctl.py).  The control mapping is the node side's
+``apply_control_msg`` (src/crts_cognitive_radio.cpp:127-206,
 src/crts_interferer.cpp:314-420); the feedback getters are the node side's
 delta-detection sources (src/crts_cognitive_radio.cpp:208-383).
 """
@@ -12,6 +12,7 @@ delta-detection sources (src/crts_cognitive_radio.cpp:208-383).
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable
 
 import torch
@@ -24,7 +25,7 @@ from cognitive_radio_network_tpu_torch.runtime.node import InterfererNode, Radio
 from cognitive_radio_network_tpu_torch.runtime.scenario import CrtsParam
 from cognitive_radio_network_tpu_torch.runtime.traffic import TrafficConfig
 
-__all__ = ["build_node", "apply_node_control", "FB_GETTERS"]
+__all__ = ["build_node", "create_user_node", "apply_node_control", "FB_GETTERS"]
 
 
 def _alloc_for(node: NodeConfig, side: str):
@@ -70,26 +71,19 @@ def build_node(
             i, mcfg.sample_rate_hz, mcfg.center_hz, icfg, log_sink, seed=i, device=device
         )
     if nc.cognitive_radio_type == "python-process":
-        # the reference runs a third-party radio as its own OS process
-        # (runtime/procradio.py, the fork + execvp of
-        # src/crts_cognitive_radio.cpp:660-720); not ported yet
-        raise NotImplementedError(
-            "cognitive_radio_type 'python-process' needs runtime/procradio.py, "
-            "not ported yet (ROADMAP Queue 1: procradio.py); use 'python' to "
-            "load the radio in this process"
-        )
+        # third-party radio as its OWN OS PROCESS — the reference's
+        # isolation model (fork + execvp("python", cognitive_radios/<file>),
+        # src/crts_cognitive_radio.cpp:660-720): the child owns the radio;
+        # a crash surfaces as a node failure, not a runtime crash
+        from cognitive_radio_network_tpu_torch.runtime.procradio import ProcessRadioNode
+
+        return ProcessRadioNode(i, mcfg.sample_rate_hz, mcfg.center_hz, nc, device=device)
     if nc.cognitive_radio_type == "python":
         # third-party radio support, in-process variant: the same
         # create_node(node_id, medium_rate, medium_center, config)
-        # contract loaded into this interpreter (lighter, no isolation)
-        import importlib.util
-
-        spec = importlib.util.spec_from_file_location(
-            f"crn_user_radio_{i}", nc.python_file
-        )
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.create_node(i, mcfg.sample_rate_hz, mcfg.center_hz, nc)
+        # contract loaded into this interpreter (lighter, no isolation —
+        # use "python-process" for the reference's fork semantics)
+        return create_user_node(i, mcfg.sample_rate_hz, mcfg.center_hz, nc, device)
     bridge = None
     if nc.net_traffic_type == "udp":
         # real-application data plane: ingress datagrams ride the link
@@ -144,6 +138,25 @@ def build_node(
     r.set_rx_taper_len(nc.rx_taper_len)
     r.set_rx_subcarrier_alloc(_alloc_for(nc, "rx"))
     return node
+
+
+def create_user_node(
+    i: int, medium_rate: float, medium_center: float, nc: NodeConfig, device: torch.device
+):
+    """Load ``nc.python_file`` and call its ``create_node(node_id, medium_rate,
+    medium_center, config)``.  A radio's device work runs where its runtime's
+    does: ``device=`` is passed too when ``create_node`` takes that keyword
+    (by name or through ``**kwargs``); a radio that does not take it chooses
+    its own device."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"crn_user_radio_{i}", nc.python_file)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    params = inspect.signature(mod.create_node).parameters.values()
+    if any(p.name == "device" or p.kind is p.VAR_KEYWORD for p in params):
+        return mod.create_node(i, medium_rate, medium_center, nc, device=device)
+    return mod.create_node(i, medium_rate, medium_center, nc)
 
 
 def _replace_cfg(node: InterfererNode, **kw) -> None:

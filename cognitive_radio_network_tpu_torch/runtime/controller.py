@@ -229,7 +229,8 @@ class ScenarioRuntime:
                         fin(self.t)
                     except Exception as e:  # noqa: BLE001 - isolation
                         self._node_failed(i, e)
-            for node in self.nodes:  # e.g. a UDP bridge's socket
+            self.log.flush()  # persist spill logs even on abnormal exit
+            for node in self.nodes:  # a UDP bridge's socket, a radio-host child
                 closer = getattr(node, "close", None)
                 if callable(closer):
                     try:

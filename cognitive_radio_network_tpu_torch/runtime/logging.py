@@ -8,15 +8,19 @@ compressed ``.npz`` and to Octave ``.m`` assignment files with the same
 variable naming style the converter emits, so the reference's Octave
 post-processing workflow still applies.
 
-The reference can also stream records to packed-binary ``.crnl`` files
-through its native CRC-framed binlog engine (``spill_dir``,
-``read_binlog``); ``BINLOG_SCHEMAS`` keeps their record layouts.  That
-engine's loader is not ported yet, so here those two raise
-``NotImplementedError``.
+With ``spill_dir`` set, records additionally stream to packed-binary
+``.crnl`` files through the native CRC-framed binlog engine
+(native/src/binlog.cpp, bound by the port's ``native`` package) — the
+``logs/bin`` role of the reference, but layout-decoupled: each stream's
+struct format travels in the file header, and :func:`read_binlog` re-parses
+files with it.  Port of ``cognitive_radio_network_tpu/runtime/logging.py``:
+the layouts are the same, so a file either package writes reads back equal
+in the other.
 """
 
 from __future__ import annotations
 
+import struct
 from pathlib import Path
 from typing import Any
 
@@ -67,21 +71,64 @@ BINLOG_SCHEMAS: dict[str, list[tuple[str, str]]] = {
 }
 
 
-_NATIVE_MISSING = (
-    "binary .crnl logs need the native binlog engine, and the port's loader "
-    "for native/ is not written yet (ROADMAP Queue 1: the native/ loader); "
-    "use the in-memory sink, save_npz or export_octave"
-)
+def _schema_fmt(stream: str) -> str:
+    return "<" + "".join(code for _, code in BINLOG_SCHEMAS[stream])
+
+
+def _pack_record(stream: str, rec: dict[str, Any]) -> bytes:
+    vals = []
+    for field, code in BINLOG_SCHEMAS[stream]:
+        v = rec.get(field, 0)
+        if code.endswith("s"):
+            vals.append(str(v).encode()[: int(code[:-1])])
+        elif code in ("B", "H", "I", "Q", "b", "h", "i", "q"):
+            vals.append(int(v))
+        else:
+            vals.append(float(v))
+    return struct.pack(_schema_fmt(stream), *vals)
+
+
+def _unpack_record(fields: list[tuple[str, str]], fmt: str, payload: bytes) -> dict:
+    vals = struct.unpack(fmt, payload)
+    rec = {}
+    for (field, code), v in zip(fields, vals):
+        if code.endswith("s"):
+            v = v.rstrip(b"\x00").decode()
+        rec[field] = v
+    return rec
 
 
 def read_binlog(path: str | Path) -> tuple[str, list[dict]]:
-    """Parse one .crnl stream file -> (stream_name, records).  Needs the
-    native binlog engine, not ported yet: raises NotImplementedError."""
-    raise NotImplementedError(_NATIVE_MISSING)
+    """Parse one .crnl stream file -> (stream_name, records).  Uses the
+    format string from the file header, not the current schema table."""
+    from cognitive_radio_network_tpu_torch import native
+
+    with native.BinLogReader(path) as rd:
+        stream, fmt = rd.stream_name.split(":", 1)
+        fields = BINLOG_SCHEMAS.get(stream)
+        if fields is None or struct.calcsize(fmt) != struct.calcsize(_schema_fmt(stream)):
+            # schema drifted: fall back to positional field names f0..fN
+            fields = [(f"f{i}", c) for i, c in enumerate(_split_fmt(fmt))]
+        return stream, [_unpack_record(fields, fmt, payload) for payload in rd]
+
+
+def _split_fmt(fmt: str) -> list[str]:
+    out, num = [], ""
+    for ch in fmt.lstrip("<>=!@"):
+        if ch.isdigit():
+            num += ch
+        else:
+            out.append(num + ch)
+            num = ""
+    return out
 
 
 def read_binlog_dir(path: str | Path) -> dict[str, list[dict]]:
-    raise NotImplementedError(_NATIVE_MISSING)
+    out: dict[str, list[dict]] = {}
+    for f in sorted(Path(path).glob("*.crnl")):
+        stream, recs = read_binlog(f)
+        out.setdefault(stream, []).extend(recs)
+    return out
 
 
 class LogSink:
@@ -96,15 +143,44 @@ class LogSink:
         self.net_rx: list[dict[str, Any]] = []
         self.net_tx: list[dict[str, Any]] = []
         self.int_tx: list[dict[str, Any]] = []
-        if spill_dir is not None:
-            raise NotImplementedError(_NATIVE_MISSING)
+        self._spill_dir = Path(spill_dir) if spill_dir is not None else None
+        self._spill_writers: dict[str, Any] = {}
+        if self._spill_dir is not None:
+            from cognitive_radio_network_tpu_torch import native
+
+            if not native.available():
+                raise RuntimeError(
+                    "spill_dir requires the native binlog engine, and building "
+                    "native/src/*.cpp with g++ into build/native/ failed"
+                )
 
     def _on(self, key: str) -> bool:
         return self.flags.get(key, True)
 
+    def _spill(self, stream: str, rec: dict[str, Any]) -> None:
+        if self._spill_dir is None:
+            return
+        w = self._spill_writers.get(stream)
+        if w is None:
+            from cognitive_radio_network_tpu_torch import native
+
+            w = native.BinLogWriter(
+                self._spill_dir / f"{stream}.crnl", f"{stream}:{_schema_fmt(stream)}"
+            )
+            self._spill_writers[stream] = w
+        w.append(_pack_record(stream, rec))
+
+    def flush(self) -> None:
+        """Force spill writers to disk (the native binlog buffers ~1 MiB;
+        typical runs spill less, so without this the .crnl files stay empty
+        until close — defeating their crash-recovery purpose)."""
+        for w in self._spill_writers.values():
+            w.flush()
+
     def close(self) -> None:
-        """Nothing to close: the port's sink holds its records in memory
-        (the reference's also streams them to .crnl files with a spill_dir)."""
+        for w in self._spill_writers.values():
+            w.close()
+        self._spill_writers.clear()
 
     def __enter__(self):
         return self
@@ -136,6 +212,7 @@ class LogSink:
                 "fec1": s.fec1 if s else "",
             }
         )
+        self._spill("phy_rx", self.phy_rx[-1])
 
     def log_phy_tx(self, node: int, frame_num: int, params: dict) -> None:
         if not self._on("log_phy_tx"):
@@ -161,6 +238,7 @@ class LogSink:
             }
         )
         self.phy_tx.append(rec)
+        self._spill("phy_tx", rec)
 
     def log_net_tx(self, node: int, t: float, packet: np.ndarray) -> None:
         if not self._on("log_net_tx"):
@@ -175,6 +253,7 @@ class LogSink:
                 "bytes": len(packet),
             }
         )
+        self._spill("net_tx", self.net_tx[-1])
 
     def log_net_rx(self, node: int, t: float, packet: np.ndarray) -> None:
         if not self._on("log_net_rx"):
@@ -189,11 +268,13 @@ class LogSink:
                 "bytes": len(packet),
             }
         )
+        self._spill("net_rx", self.net_rx[-1])
 
     def log_int_tx(self, node: int, t: float, freq: float) -> None:
         if not self._on("log_int_tx"):
             return
         self.int_tx.append({"node": node, "t": t, "tx_freq": freq})
+        self._spill("int_tx", self.int_tx[-1])
 
     # -- export --
 

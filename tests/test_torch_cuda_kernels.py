@@ -498,3 +498,67 @@ def test_stream_receiver_refuses_planes_on_another_device():
     if torch.cuda.device_count() == 1:
         with pytest.raises(ValueError, match="receiver on cuda:1 was given planes on cuda:0"):
             StreamReceiver(cfg, device="cuda:1").feed_device(on_card, on_card)
+
+
+def _link_cfg(run_time):
+    """The two-node FDD link of tests/test_runtime.py:117-145."""
+    from cognitive_radio_network_tpu_torch.runtime import NodeConfig, ScenarioConfig
+
+    common = dict(tx_rate=1e6, rx_rate=1e6, tx_gain=20.0, rx_gain=20.0, tx_gain_soft=-6.0,
+                  ce_timeout_ms=1000.0, net_mean_throughput=200e3)
+    return ScenarioConfig(
+        num_nodes=2, run_time=run_time, medium_rate=4e6, medium_center=465e6,
+        medium_block_len=16384, medium_noise_power=1e-7, name="two_node_link",
+        nodes=[NodeConfig(tx_freq=464e6, rx_freq=466e6, **common),
+               NodeConfig(tx_freq=466e6, rx_freq=464e6, **common)],
+    )
+
+
+def test_distributed_link_on_card_equals_in_process():
+    """Two node processes on the card (TCP ports 47750-47751): the summary of
+    the in-process run on the card, and each node launched the extract kernel."""
+    import dataclasses
+
+    from cognitive_radio_network_tpu_torch.runtime import ScenarioRuntime
+    from cognitive_radio_network_tpu_torch.runtime.netctl import NetController
+
+    want = ScenarioRuntime(_link_cfg(0.1)).run()
+    for port, transport in ((47750, "native"), (47751, "python")):
+        ctl = NetController(_link_cfg(0.1), port=port, transport=transport, start_pad_s=0.5)
+        assert ctl.device.type == "cuda"
+        got = ctl.run()
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert sum(got.valid_frames) > 0
+        assert all(ctl.summaries[i]["launches"]["extract_windows"] > 0 for i in (0, 1))
+
+
+_CARD_RADIO = '''
+from cognitive_radio_network_tpu_torch.runtime.config import NodeConfig
+from cognitive_radio_network_tpu_torch.runtime.control import build_node
+from cognitive_radio_network_tpu_torch.runtime.medium import MediumConfig
+
+def create_node(node_id, medium_rate, medium_center, config, device):
+    assert device.type == "cuda"
+    nc = NodeConfig(**vars(config))
+    nc.cognitive_radio_type = "ecr"
+    mcfg = MediumConfig(sample_rate_hz=medium_rate, center_hz=medium_center)
+    return build_node(node_id, nc, mcfg, None, device=device)
+'''
+
+
+def test_process_radio_on_card_carries_the_link(tmp_path):
+    """A ``python-process`` radio that builds a port node runs its child on
+    the card (``--device cuda``) and carries frames to its in-process peer."""
+    from cognitive_radio_network_tpu_torch.runtime import ScenarioRuntime
+
+    f = tmp_path / "card_radio.py"
+    f.write_text(_CARD_RADIO)
+    cfg = _link_cfg(0.25)
+    cfg.nodes[1].cognitive_radio_type = "python-process"
+    cfg.nodes[1].python_file = str(f)
+    rt = ScenarioRuntime(cfg)
+    rt.run()
+    assert not rt.failed_nodes, rt.failed_nodes
+    argv = rt.nodes[1]._proc.args
+    assert argv[argv.index("--device") + 1].startswith("cuda")
+    assert len(rt.nodes[0].rx_packets) > 0 and rt.nodes[0].radio.device.type == "cuda"

@@ -57,6 +57,10 @@ def test_port_modules_load_without_jax():
         "cognitive_radio_network_tpu_torch.runtime.node, "
         "cognitive_radio_network_tpu_torch.runtime.control, "
         "cognitive_radio_network_tpu_torch.runtime.controller, "
+        "cognitive_radio_network_tpu_torch.runtime.netctl, "
+        "cognitive_radio_network_tpu_torch.runtime.procradio, "
+        "cognitive_radio_network_tpu_torch.native, "
+        "cognitive_radio_network_tpu_torch.utils.build, "
         "cognitive_radio_network_tpu_torch.engines, "
         "cognitive_radio_network_tpu_torch.engines.template, "
         "cognitive_radio_network_tpu_torch.engines.random_pu, "
@@ -79,3 +83,34 @@ def test_port_modules_load_without_jax():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def test_every_spawned_argv_names_the_port():
+    """The node argv, the ssh remote command and the radio-host argv start
+    the port's package with the controller's device, never the JAX one."""
+    import dataclasses
+
+    import torch
+
+    from cognitive_radio_network_tpu_torch.runtime import NodeConfig, ScenarioConfig
+    from cognitive_radio_network_tpu_torch.runtime.netctl import NetController
+    from cognitive_radio_network_tpu_torch.runtime.procradio import ProcessRadioNode
+
+    cfg = ScenarioConfig(num_nodes=2, nodes=[NodeConfig(), NodeConfig()])
+    ctl = NetController(cfg, port=4444, launch="ssh", controller_addr="10.0.0.1",
+                        remote_python="python3", device="cpu")
+    argv = ctl._node_argv("127.0.0.1")
+    assert argv[0] == sys.executable
+    assert argv[1:4] == ["-m", "cognitive_radio_network_tpu_torch", "node"]
+    assert argv[argv.index("--device") + 1] == "cpu"
+    remote = ctl._remote_command()
+    assert remote.startswith("echo CRN_NODE_PID $$; exec python3 -m "
+                             "cognitive_radio_network_tpu_torch node -a 10.0.0.1 -p 4444")
+    assert remote.endswith("--device cpu")
+    nc = dataclasses.replace(NodeConfig(), python_file="r.py")
+    radio = ProcessRadioNode.argv(0, 1e6, 460e6, nc, torch.device("cpu"))
+    assert radio[1:4] == ["-m", "cognitive_radio_network_tpu_torch", "radio-host"]
+    assert radio[radio.index("--device") + 1] == "cpu"
+    for words in (argv, remote.split(), radio):
+        assert "cognitive_radio_network_tpu" not in words
+        assert not any(re.search(r"cognitive_radio_network_tpu(?!_torch)", w) for w in words)

@@ -142,12 +142,24 @@ def test_log_sink_exports_equal(tmp_path):
     assert (tmp_path / "t.m").read_text() == (tmp_path / "j.m").read_text()
 
 
-def test_binary_logs_name_the_missing_native_loader(tmp_path):
-    with pytest.raises(NotImplementedError, match="native/ loader"):
-        tlog.LogSink(spill_dir=tmp_path)
-    with pytest.raises(NotImplementedError, match="native/ loader"):
-        tlog.read_binlog(tmp_path / "phy_rx.crnl")
+def test_binary_logs_name_the_missing_native_loader(tmp_path, monkeypatch):
+    """Binary logs go through the port's native loader: a spilled record reads
+    back in both packages, and where the library cannot be built the sink's
+    error names the native build."""
+    from cognitive_radio_network_tpu_torch import native
+    from cognitive_radio_network_tpu_torch.runtime import radio as tradio
+
+    sink = tlog.LogSink(spill_dir=tmp_path)
+    _fill(sink, tradio)
+    sink.close()
+    streams = tlog.read_binlog_dir(tmp_path)
+    assert sorted(streams) == ["int_tx", "net_rx", "net_tx", "phy_rx", "phy_tx"]
+    assert streams == jlog.read_binlog_dir(tmp_path)
+    assert streams["phy_rx"][0]["mod_scheme"] == "qam4" and streams["int_tx"][0]["node"] == 2
     assert tlog.BINLOG_SCHEMAS == jlog.BINLOG_SCHEMAS
+    monkeypatch.setattr(native, "load", lambda: None)
+    with pytest.raises(RuntimeError, match="native/src"):
+        tlog.LogSink(spill_dir=tmp_path / "none")
 
 
 # ------------------------------------------------------------------ medium
@@ -224,11 +236,19 @@ def test_complex_cell_gain_keeps_its_phase():
 
 
 def test_registries_list_the_reference_names_and_stay_apart():
+    """The names each package registers itself are the same; tests that run
+    earlier in the same worker may register their own classes in either."""
     from cognitive_radio_network_tpu.runtime import engine as jeng
     from cognitive_radio_network_tpu_torch.runtime import engine as teng
 
-    assert trt.engine_names() == jrt.engine_names()
-    assert trt.controller_names() == jrt.controller_names()
+    def own(names, reg, pkg):
+        return [n for n in names if reg[n].__module__.startswith(pkg + ".")]
+
+    for names, reg in ((trt.engine_names, teng._ENGINES), (trt.controller_names, teng._CONTROLLERS)):
+        assert names() == own(names(), reg, "cognitive_radio_network_tpu_torch")
+    assert trt.engine_names() == own(jrt.engine_names(), jeng._ENGINES, "cognitive_radio_network_tpu")
+    assert trt.controller_names() == own(jrt.controller_names(), jeng._CONTROLLERS,
+                                         "cognitive_radio_network_tpu")
     for reg in (teng._ENGINES, teng._CONTROLLERS):
         assert all(c.__module__.startswith("cognitive_radio_network_tpu_torch.") for c in reg.values())
     for reg in (jeng._ENGINES, jeng._CONTROLLERS):
@@ -283,12 +303,24 @@ def test_phy_placement_host_runs_on_the_callers_device():
     assert all(n.radio._rx.device.type == "cpu" for n in rt.nodes)
 
 
-def test_process_radio_names_the_missing_module():
+def test_process_radio_names_the_missing_module(tmp_path):
+    """``python-process`` builds a ProcessRadioNode whose child is the port's
+    radio-host on the runtime's device; a radio file that does not exist
+    kills the child, and the next exchange says so."""
     from cognitive_radio_network_tpu_torch.runtime.control import build_node
+    from cognitive_radio_network_tpu_torch.runtime.procradio import ProcessRadioNode
 
-    nc = trt.NodeConfig(cognitive_radio_type="python-process", python_file="radio.py")
-    with pytest.raises(NotImplementedError, match="procradio"):
-        build_node(0, nc, tmed.MediumConfig(), None, device="cpu")
+    nc = trt.NodeConfig(cognitive_radio_type="python-process",
+                        python_file=str(tmp_path / "radio.py"))
+    node = build_node(0, nc, tmed.MediumConfig(), None, device="cpu")
+    try:
+        assert isinstance(node, ProcessRadioNode) and node.device.type == "cpu"
+        assert node._proc.args[2:4] == ["cognitive_radio_network_tpu_torch", "radio-host"]
+        with pytest.raises(ConnectionError, match="radio-host"):
+            node.start()
+    finally:
+        node.close()
+    assert node._proc.poll() is not None
 
 
 def test_control_and_feedback_apply_like_the_reference():
