@@ -129,9 +129,31 @@ one line; any failure raises, and the exit code is then non-zero.
 23. ``scenarios/predictive_model.cfg -d``: a 2.0 s warm run, then 12.0 s (the
    reference bench's 40.0 s, bench.py:478-488, cut): the SU's node reports
    ``fused_sense_ct`` launches; the distributed realtime factor.
+24. training at the reference's own settings (tests/test_scenarios.py:186-231):
+   ``make_dataset(400, signal_power=0.005, power_jitter_decades=2.5)`` makes
+   exactly one ``fused_sense_ct`` launch; ``fit`` runs 3000 steps with no
+   synchronizing call inside its loop (PyTorch's sync debug mode: the one
+   readback of the losses after the loop is all) and the loss falls; the
+   trained net and the reference weights score a held-out 256-cycle Markov
+   trace at five powers through ``make_sense_fn`` (generator seeds 0, 1, 42 and
+   8, fixed): trained >= reference at every power, and at 1e-4 trained >= 0.95
+   and reference <= 0.9; times of ``make_dataset`` and ``fit``
+   (``utils/profiling.py::device_time``), device operations and busy time of a
+   step.
+25. the wideband train step at full width: ``WidebandConfig()`` on phase 11's
+   batch shape (4 streams of T=65,536, tones at random channels made on the
+   card), 150 steps at lr 3e-2 (tests/test_distributed_training.py:22-39):
+   exactly 4 ``wideband_energy_fused`` launches in every step, the first
+   step's loss within rtol 1e-5 of the loss over the packed plain path's
+   energies, the loss halves and ends below 0.2, ``make_sharded_apply``
+   accuracy above 0.95; ms per step and the kernel's share of busy time.
+26. the surface: ``python -m cognitive_radio_network_tpu_torch train`` in a
+   process on the card, its checkpoint read by ``load_mlp_with_meta``; the
+   ``spectrum`` command on a capture of a PU on CH2 made on the card (the peak
+   within CH2's band); ``gmsk_frame`` on the card within atol 1e-6 of the CPU.
 
 The line before the last is a JSON object with each kernel's launches on its
-path, error, times and bound (the least time the card could take: bytes moved
+path (kernels 1 and 3 also on the training paths), error, times and bound (the least time the card could take: bytes moved
 over 3.35 TB/s or the float32 operations the function needs, with an FFT for
 a DFT, over 67 TFLOP/s, whichever is larger).
 The last line is ``{"ok": true, "device": {...}}``.
@@ -177,6 +199,8 @@ PREDICTIVE_S = 12.0  # sim seconds of scenarios/predictive_model.cfg (bench.py:4
 DIST_EIGHT_NODE_S = 2.0  # the reference bench runs 16.0 (bench.py:516); cut to phase 19's length
 DIST_PREDICTIVE_WARM_S, DIST_PREDICTIVE_S = 2.0, 12.0  # bench.py:478-488 runs 2.0, then 40.0
 DIST_PORT = 47760  # TCP ports 47760-47763 of the distributed phases
+TRAIN_EXAMPLES, TRAIN_STEPS = 400, 3000  # tests/test_scenarios.py:186-190
+WIDE_TRAIN_STEPS = 150  # tests/test_distributed_training.py:29
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate
 FP32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
 
@@ -1680,6 +1704,244 @@ def distributed_phases(smi: str, inproc: dict) -> dict:
     return launches
 
 
+def training_phases(dev, smi: str) -> dict:
+    """Phases 24-26: training at full width (the sense kernel in
+    ``make_dataset`` and the evaluation), the wideband train step (the
+    wideband kernel once per stream per step), and the ``train`` and
+    ``spectrum`` commands and GMSK on the card.  Returns the two kernels'
+    launches on the training paths."""
+    import copy
+    import dataclasses
+    import io
+    import warnings
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    from cognitive_radio_network_tpu_torch.__main__ import main as cli_main
+    from cognitive_radio_network_tpu_torch.env import markov_pu_trace
+    from cognitive_radio_network_tpu_torch.env.scene import occupancy_to_powers, synthesize_scene
+    from cognitive_radio_network_tpu_torch.io.checkpoint import load_mlp_with_meta
+    from cognitive_radio_network_tpu_torch.io.iq import IQWriter
+    from cognitive_radio_network_tpu_torch.models import (
+        SenseConfig,
+        make_sense_fn,
+        make_sharded_apply,
+        make_sharded_train_step,
+        wideband_features,
+    )
+    from cognitive_radio_network_tpu_torch.models.distributed import _loss
+    from cognitive_radio_network_tpu_torch.models.train import (
+        TrainConfig,
+        TrainState,
+        fit,
+        make_dataset,
+        make_optimizer,
+        train_step,
+    )
+    from cognitive_radio_network_tpu_torch.ops import fused_sense_ct, wideband_energy_fused
+    from cognitive_radio_network_tpu_torch.parallel import WidebandConfig, wideband_sense
+    from cognitive_radio_network_tpu_torch.phy.gmsk import gmsk_frame
+    from cognitive_radio_network_tpu_torch.signal.mlp import reference_weights
+    from cognitive_radio_network_tpu_torch.utils.profiling import device_time
+
+    launches = {}
+
+    def gen(seed: int):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # 24. training at the reference's own settings (tests/test_scenarios.py:186-193)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    feats, labels = make_dataset(gen(0), TRAIN_EXAMPLES, signal_power=0.005,
+                                 power_jitter_decades=2.5)
+    torch.cuda.synchronize()
+    first_ds_s = time.perf_counter() - t0
+    launches["make_dataset"] = fused_sense_ct.launches
+    if launches["make_dataset"] != 1:
+        raise AssertionError(f"make_dataset launched the sense kernel {launches['make_dataset']} "
+                             f"times, not once")
+    if tuple(feats.shape) != (TRAIN_EXAMPLES, 4) or not torch.isfinite(feats).all():
+        raise AssertionError(f"make_dataset: features {tuple(feats.shape)} or non-finite values")
+    tcfg = TrainConfig(num_steps=TRAIN_STEPS)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            params, losses = fit(gen(1), feats, labels, tcfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchronizing CUDA operation" in str(w.message)]
+    # a synchronizing call inside the loop would warn once per step; fit reads
+    # the losses back once, after it
+    if len(syncs) > 1:
+        raise AssertionError(f"{len(syncs)} synchronizing calls in fit's {TRAIN_STEPS} steps, "
+                             f"e.g. {syncs[0].filename}:{syncs[0].lineno} {syncs[0].message}")
+    where = f"{Path(syncs[0].filename).name}:{syncs[0].lineno}" if syncs else "none"
+    if losses.shape != (TRAIN_STEPS,) or not np.isfinite(losses).all() or losses[-1] >= losses[0]:
+        raise AssertionError(f"fit: losses {losses[:3]} .. {losses[-3:]} do not fall")
+    ds_t = device_time(make_dataset, gen(0), TRAIN_EXAMPLES, SenseConfig(), None, 0.005, 2.5,
+                       reps=5, warmup=1)
+    fit_t = device_time(fit, gen(1), feats, labels, tcfg, reps=2, warmup=1)
+    step_us = fit_t["mean_s"] / TRAIN_STEPS * 1e6
+    probe = copy.deepcopy(params)  # profiled steps train a copy, not the net evaluated below
+    state = TrainState(probe, make_optimizer(tcfg, probe), 0)
+    _, ops, busy_us, _ = profiled(lambda: train_step(state, feats, labels, tcfg), "train_step", "")
+    phase("training", f"make_dataset({TRAIN_EXAMPLES}, signal_power=0.005, "
+          f"power_jitter_decades=2.5): 1 fused_sense_ct launch; {first_ds_s * 1e3:.1f} ms host "
+          f"time (first call), then {ds_t['mean_s'] * 1e3:.3f} ms per call (device_time, 5 "
+          f"calls); fit {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"synchronizing calls {len(syncs)} (PyTorch's sync debug mode; where: {where}); "
+          f"{fit_t['mean_s']:.3f} s per fit (device_time, 2 fits), "
+          f"{TRAIN_STEPS / fit_t['mean_s']:.0f} steps/s, {step_us:.1f} us host time per step; profiled train_step: {ops:.1f} device "
+          f"operations and {busy_us:.1f} us busy per step, so the device idles "
+          f"{1 - busy_us / step_us:.1%} of a step of fit; {smi}")
+    # the reference's criterion on a held-out Markov trace (tests/test_scenarios.py:195-231)
+    cfg = SenseConfig()
+    cfg_t = dataclasses.replace(cfg, feature_transform="log1p")
+    sense, sense_t = make_sense_fn(cfg), make_sense_fn(cfg_t)
+    ref_w = reference_weights(device=dev)
+    trace = markov_pu_trace(gen(42), 256)
+    truth = trace.cpu().numpy() + 1
+    rows = []
+    torch.cuda.synchronize()
+    reset_counts()
+    for power in (0.05, 5e-3, 5e-4, 2e-4, 1e-4):
+        planes = synthesize_scene(gen(8), occupancy_to_powers(trace, 3, power=power),
+                                  cfg.samples_per_cycle, as_planes=True)
+        planar = tuple(planes[..., i].reshape(-1, cfg.fft_length).contiguous() for i in (0, 1))
+        a_ref = float(np.mean(sense(planar, ref_w)["decision"].cpu().numpy() == truth))
+        a_tr = float(np.mean(sense_t(planar, params)["decision"].cpu().numpy() == truth))
+        rows.append((power, a_ref, a_tr))
+    launches["evaluation"] = fused_sense_ct.launches
+    table = ", ".join(f"{p:g}: reference {r:.4f}, trained {t:.4f}" for p, r, t in rows)
+    phase("training", f"held-out 256-cycle Markov trace (generator seeds: dataset 0, start 1, "
+          f"trace 42, scenes 8), accuracy by power: {table}; fused_sense_ct launches "
+          f"{launches['evaluation']}")
+    for p, r, t in rows:
+        if t < r - 1e-9:
+            raise AssertionError(f"at power {p:g} the trained net ({t:.4f}) is below the "
+                                 f"reference weights ({r:.4f})")
+    if not (rows[-1][2] >= 0.95 and rows[-1][1] <= 0.9):
+        raise AssertionError(f"at power 1e-4: trained {rows[-1][2]:.4f} (needs >= 0.95), "
+                             f"reference {rows[-1][1]:.4f} (needs <= 0.9)")
+    if launches["evaluation"] != 2 * len(rows):
+        raise AssertionError(f"the evaluation launched the sense kernel {launches['evaluation']} "
+                             f"times for {2 * len(rows)} calls")
+    del feats, labels
+
+    # 25. the wideband train step at full width on phase 11's batch shape
+    wcfg = WidebandConfig()
+    m, bl = wcfg.num_channels, wcfg.block_len
+    cycles = APPLY_T // bl
+    g = gen(25)
+    active = torch.rand(APPLY_BATCH, m, generator=g, device=dev) < 0.5
+    phi = 2 * np.pi * torch.rand(APPLY_BATCH, m, 1, generator=g, device=dev, dtype=torch.float64)
+    # a unit tone at channel k's centre repeats every M samples: one period per
+    # stream, the sum over its active channels, tiled over T
+    k = torch.arange(m, device=dev, dtype=torch.float64)
+    ang = 2 * np.pi * k[:, None] * k[None, :] / m + phi  # (B, channel, n mod M)
+    on = active[..., None].double()
+    period = torch.stack([(on * ang.cos()).sum(1), (on * ang.sin()).sum(1)], dim=-1).float()
+    batch = 0.01 * torch.randn(APPLY_BATCH, APPLY_T * m, 2, generator=g, device=dev)
+    batch += period.repeat(1, APPLY_T, 1)
+    wlabels = active.float()[:, None, :].expand(APPLY_BATCH, cycles, m).contiguous()
+    init_fn, step_fn = make_sharded_train_step(wcfg, learning_rate=3e-2)
+    wstate = init_fn(gen(0))
+    with torch.no_grad():
+        res = wideband_sense(batch, torch.from_numpy(wcfg.taps()).to(dev), wcfg, use_fused=False)
+        packed_loss = _loss(wstate.params, wideband_features(res["energy"], res["noise"]), wlabels)
+    del res
+    torch.cuda.synchronize()
+    reset_counts()
+    wlosses, per_step = [], []
+    for _ in range(WIDE_TRAIN_STEPS):
+        before = wideband_energy_fused.launches
+        wstate, loss = step_fn(wstate, batch, wlabels)
+        per_step.append(wideband_energy_fused.launches - before)
+        wlosses.append(loss)
+    wlosses = torch.stack(wlosses).cpu().numpy()
+    launches["train_steps"] = wideband_energy_fused.launches
+    if set(per_step) != {APPLY_BATCH}:
+        raise AssertionError(f"a train step launched the wideband kernel {sorted(set(per_step))} "
+                             f"times, not {APPLY_BATCH}")
+    rel = abs(float(wlosses[0]) - packed_loss.item()) / packed_loss.item()
+    if rel > 1e-5:
+        raise AssertionError(f"first step's loss {wlosses[0]} differs from the packed path's "
+                             f"{packed_loss.item()} by rtol {rel:.2e}")
+    if not (wlosses[-1] < 0.5 * wlosses[0] and wlosses[-1] < 0.2):
+        raise AssertionError(f"wideband training: loss {wlosses[0]:.4f} -> {wlosses[-1]:.4f}")
+    probs = make_sharded_apply(wcfg)(wstate.params, batch)
+    acc = float(((probs > 0.5) == (wlabels > 0.5)).float().mean())
+    if acc <= 0.95:
+        raise AssertionError(f"wideband training: apply accuracy {acc:.4f}")
+    wt = device_time(step_fn, wstate, batch, wlabels, reps=20, warmup=2)
+    wall_ms, ops, busy_us, kern_us = profiled(lambda: step_fn(wstate, batch, wlabels),
+                                              "wideband_step", "fused_wideband_kernel")
+    phase("wideband-training", f"WidebandConfig() on ({APPLY_BATCH}, {APPLY_T * m}, 2) planes, "
+          f"{int(active.sum())} active channel-streams, {WIDE_TRAIN_STEPS} steps at lr 3e-2: "
+          f"{APPLY_BATCH} wideband kernel launches in every step ({launches['train_steps']} in "
+          f"all); first loss {wlosses[0]:.6f}, packed plain path {packed_loss.item():.6f} (rel "
+          f"{rel:.2e}, rtol 1e-5); loss {wlosses[0]:.4f} -> {wlosses[-1]:.4f}; make_sharded_apply "
+          f"accuracy {acc:.4f}; {wt['mean_s'] * 1e3:.4f} ms per step (device_time, 20 steps "
+          f"back to back); one synchronized step {wall_ms:.4f} ms by host clock, {ops:.1f} "
+          f"device operations, {busy_us:.1f} us busy, the kernel {kern_us:.1f} us "
+          f"({kern_us / busy_us:.1%} of busy); {smi}")
+    del batch, probs
+
+    # 26. the surface: the train and spectrum commands on the card, GMSK
+    work = ROOT / "build" / "chip_smoke_training"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        ckpt = work / "mlp.npz"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "cognitive_radio_network_tpu_torch", "train", "-o", str(ckpt)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+        )
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"train CLI exited {proc.returncode}:\n{proc.stdout}{proc.stderr}")
+        mlp, meta = load_mlp_with_meta(ckpt, device=dev)
+        if meta["feature_transform"] != "log1p" or tuple(mlp.w1.shape) != (4, 5):
+            raise AssertionError(f"train CLI checkpoint: {meta}, w1 {tuple(mlp.w1.shape)}")
+        phase("surface", f"python -m cognitive_radio_network_tpu_torch train (the card, defaults) "
+              f"in {cli_s:.1f} s (process included): {proc.stdout.strip().splitlines()[-1]}; "
+              f"load_mlp_with_meta reads it: feature_transform {meta['feature_transform']}")
+        # a PU parked on CH2 (835 MHz), made on the card, through the spectrum command
+        powers = occupancy_to_powers(torch.full((16,), 1, device=dev), 3, power=0.1)
+        planes = synthesize_scene(gen(26), powers, 1024 * 8, as_planes=True)
+        cap, wf_out = work / "capture.iq", work / "wf.npz"
+        with IQWriter(cap, 13e6, 833e6) as w:
+            w.write(planes.reshape(-1, 2).cpu().numpy())
+        shown = io.StringIO()
+        with redirect_stdout(shown):
+            rc = cli_main(["spectrum", str(cap), "--out", str(wf_out)])
+        with np.load(wf_out) as d:
+            wf, f = d["waterfall_db"], d["freq_hz"]
+        peak = float(f[(10 ** (wf / 10)).mean(0).argmax()])
+        if rc != 0 or wf.shape != (16, 1024) or not np.isfinite(wf).all():
+            raise AssertionError(f"spectrum: rc {rc}, waterfall {wf.shape}")
+        if abs(peak - 835e6) > 0.7e6:
+            raise AssertionError(f"spectrum: the peak at {peak / 1e6:.3f} MHz is not in CH2")
+        phase("surface", f"spectrum (the card) on a 16-row capture of a PU on CH2: waterfall "
+              f"{wf.shape}, peak at {peak / 1e6:.3f} MHz (CH2 835 +- 0.7); "
+              f"{shown.getvalue().strip().splitlines()[-1]}")
+        on_card = gmsk_frame(np.random.default_rng(26), device=dev)
+        on_cpu = gmsk_frame(np.random.default_rng(26), device="cpu")
+        diff = (on_card.cpu() - on_cpu).abs().max().item()
+        if on_card.device.type != "cuda" or on_card.shape != on_cpu.shape or diff > 1e-6:
+            raise AssertionError(f"gmsk_frame on the card differs from the CPU by {diff:.2e}")
+        phase("surface", f"gmsk_frame on the card: {tuple(on_card.shape)} complex64, within "
+              f"atol 1e-6 of the CPU's (max abs diff {diff:.2e}, equal bits: "
+              f"{torch.equal(on_card.cpu(), on_cpu)})")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1924,6 +2186,7 @@ def main() -> int:
     resolve_entry, stream_extract = stream_phases(dev, smi)
     scn = scenario_phases(smi)
     dist = distributed_phases(smi, scn)
+    train = training_phases(dev, smi)
     extract_entry.update(stream_extract)
     extract_entry["max_abs_err"] = max(
         extract_entry["max_abs_err"], stream_extract["stream_step_max_abs_err"])
@@ -1942,7 +2205,10 @@ def main() -> int:
         "library_ms": None,  # FFT + magnitude + mean + band sums: no single PyTorch call
         "scenario_launches": {"predictive_model.cfg": scn["predictive"],
                               "predictive_model.cfg -d, SU node": dist["predictive"]},
+        "training_launches": {"make_dataset": train["make_dataset"],
+                              "evaluation": train["evaluation"]},
     }, extract_entry, *new_entries, resolve_entry]
+    new_entries[0]["training_launches"] = {"train_steps": train["train_steps"]}
     extract_entry["scenario_launches"] = {
         "two_node_link": scn["link"], "eight_node.cfg": scn["eight_node"],
         "predictive_model.cfg": scn["predictive_extract"],

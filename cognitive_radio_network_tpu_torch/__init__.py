@@ -13,7 +13,8 @@ plain PyTorch version by the device of the tensor it is given
 
 Ported so far (the sense->classify main path, the OFDM link with its
 fixed-config and adaptive streaming receivers, the one-device 64-channel
-wideband detector, and the in-process scenario runtime):
+wideband detector, the scenario runtime in one process or one process per
+node, classifier training on one device, and the operator tools):
 
 signal    IQ layouts, DFT spectra, band features, the sigmoid MLP, detector,
           filter design, m-sequences, the polyphase channelizer, rational
@@ -26,16 +27,21 @@ ops       ``fused_sense_ct``: 512-point FFT -> |X| -> mean over buffers ->
           written; ``resolve_candidates``: the stream step's greedy walk over
           frame candidates (CUDA kernels + plain versions)
 models    ``SenseConfig``, ``sense_classify``, ``sense_classify_trace``,
-          ``make_sense_fn``; ``wideband_features``, ``make_sharded_apply``
+          ``make_sense_fn``; ``TrainConfig``, ``make_dataset``, ``fit``
+          (training); ``wideband_features``, ``make_sharded_train_step``,
+          ``make_sharded_apply``
 parallel  ``WidebandConfig``, ``wideband_energy_packed``, ``wideband_sense``,
           ``make_wideband_fn`` (one device)
 phy       bits, CRC, FEC, modem, subcarrier allocations, ``OFDMFrameGen``,
           ``OFDMFrameSync`` (detect, demod, decode, block receive),
           ``StreamReceiver`` (per-frame configs from the PHY header; host and
-          device-resident streaming)
+          device-resident streaming), GMSK frames
 env       Markov/random PU traces, scene synthesis, channel impairments,
           interferer waveforms
-io        recorded-IQ captures and MLP checkpoints (same file formats)
+io        recorded-IQ captures, MLP checkpoints and training states (same
+          file formats and keys)
+tools     the headless spectrum analyzer (waterfall, PSD, live monitor)
+utils     device selection, float32 control, timers, profiling
 runtime   ``ScenarioRuntime``: configs, the simulated medium, radios, nodes,
           the control channel, logs; ``engines`` and ``controllers`` hold
           the cognitive engines and scenario controllers

@@ -6,6 +6,8 @@
     python -m cognitive_radio_network_tpu_torch sense capture.iq -o out.npz
     python -m cognitive_radio_network_tpu_torch scenario -d scenarios/eight_node.cfg
     python -m cognitive_radio_network_tpu_torch export logs/bin -o run.m
+    python -m cognitive_radio_network_tpu_torch train -n 400 -s 2000 -o ckpt.npz
+    python -m cognitive_radio_network_tpu_torch spectrum demo
 
 ``scenario`` and ``master`` run scenarios in-process against the simulated
 medium and write structured logs (npz + Octave export) under ``--log-dir``;
@@ -13,10 +15,13 @@ medium and write structured logs (npz + Octave export) under ``--log-dir``;
 node (the ``crts_controller`` star topology); ``radio-host`` is the child
 process of a ``python-process`` radio; ``sense`` streams a recorded IQ
 capture through sense->classify in dispatches of ``--cycles-per-dispatch``
-cycles; ``export`` converts saved logs to Octave.  Each that computes runs
-on ``--device`` (default ``cuda``; there is no fallback to the CPU when no
-card is found), and a distributed run hands its device to every node.  The
-reference's ``train`` and ``spectrum`` are not ported yet.
+cycles; ``export`` converts saved logs to Octave; ``train`` fits the
+occupancy classifier on synthetic scenes and writes a checkpoint that
+``CE_Predictive_Node -w`` loads; ``spectrum`` is the headless spectrum
+analyzer (:mod:`.tools.spectrum_analyzer`, its own flags).  Each that
+computes runs on ``--device`` (default ``cuda``; there is no fallback to the
+CPU when no card is found), and a distributed run hands its device to every
+node.
 """
 
 from __future__ import annotations
@@ -247,6 +252,36 @@ def _cmd_export(args) -> int:
     return 0
 
 
+def _cmd_train(args) -> int:
+    """Fit the occupancy classifier on a synthetic dataset and save it with
+    its feature transform, so ``CE_Predictive_Node -w`` applies the same."""
+    import torch
+
+    from cognitive_radio_network_tpu_torch.io.checkpoint import save_mlp
+    from cognitive_radio_network_tpu_torch.models.train import TrainConfig, fit, make_dataset
+    from cognitive_radio_network_tpu_torch.utils.device import require_device
+
+    device = require_device(args.device)
+    feats, labels = make_dataset(
+        torch.Generator(device=device).manual_seed(args.seed), args.num_examples, device=device
+    )
+    tcfg = TrainConfig(learning_rate=args.lr, num_steps=args.steps)
+    params, losses = fit(
+        torch.Generator(device=device).manual_seed(args.seed + 1), feats, labels, tcfg,
+        device=device,
+    )
+    with torch.no_grad():
+        preds = params(torch.log1p(feats)) > 0.5
+    acc = float((preds == (labels > 0.5)).float().mean())
+    save_mlp(args.out, params, feature_transform="log1p" if tcfg.log_features else "none")
+    print(
+        f"trained {args.num_examples} examples, {args.steps} steps: "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, accuracy {acc:.3f}; "
+        f"saved {args.out}"
+    )
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="cognitive_radio_network_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -341,6 +376,17 @@ def main(argv=None) -> int:
     )
     device_arg(sn)
 
+    tp = sub.add_parser("train", help="train the occupancy classifier on synthetic scenes")
+    tp.add_argument("-n", "--num-examples", type=int, default=400)
+    tp.add_argument("-s", "--steps", type=int, default=2000)
+    tp.add_argument("--lr", type=float, default=3e-3)
+    tp.add_argument("-o", "--out", default="checkpoints/occupancy_mlp.npz")
+    tp.add_argument("--seed", type=int, default=0)
+    device_arg(tp)
+
+    wp = sub.add_parser("spectrum", help="headless spectrum analyzer (its own --device)")
+    wp.add_argument("spectrum_args", nargs=argparse.REMAINDER)
+
     xp = sub.add_parser(
         "export",
         help="convert saved run logs (.npz, or a .crnl binary log / directory "
@@ -354,6 +400,12 @@ def main(argv=None) -> int:
         return _cmd_sense(args)
     if args.cmd == "export":
         return _cmd_export(args)
+    if args.cmd == "train":
+        return _cmd_train(args)
+    if args.cmd == "spectrum":
+        from cognitive_radio_network_tpu_torch.tools.spectrum_analyzer import main as smain
+
+        return smain(args.spectrum_args)
     if args.cmd == "node":
         from cognitive_radio_network_tpu_torch.runtime.netctl import run_node_client
 

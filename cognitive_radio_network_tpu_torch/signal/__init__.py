@@ -37,6 +37,7 @@ from cognitive_radio_network_tpu_torch.signal.iq import (
 )
 from cognitive_radio_network_tpu_torch.signal.mlp import (
     OccupancyMLP,
+    init_mlp,
     mlp_forward,
     params_from_numpy,
     reference_weights,
@@ -52,6 +53,7 @@ __all__ = [
     "band_features",
     "OccupancyMLP",
     "reference_weights",
+    "init_mlp",
     "params_from_numpy",
     "mlp_forward",
     "occupancy_decision",

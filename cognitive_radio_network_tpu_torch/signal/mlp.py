@@ -22,7 +22,7 @@ from torch import nn
 
 from cognitive_radio_network_tpu_torch.utils.device import full_f32
 
-__all__ = ["OccupancyMLP", "reference_weights", "params_from_numpy", "mlp_forward"]
+__all__ = ["OccupancyMLP", "reference_weights", "params_from_numpy", "mlp_forward", "init_mlp"]
 
 # WeightIH[i][j] transposed into (input, hidden): rows i=1..4, cols j=1..5.
 _REF_W1 = np.array(
@@ -93,3 +93,21 @@ def reference_weights(device=None, dtype=torch.float32) -> OccupancyMLP:
 def mlp_forward(mlp: OccupancyMLP, features: torch.Tensor) -> torch.Tensor:
     """Sigmoid MLP forward pass: (..., n_in) -> (..., n_out) in [0, 1]."""
     return mlp(features)
+
+
+def init_mlp(
+    generator: torch.Generator,
+    n_in: int = 4,
+    n_hidden: int = 5,
+    n_out: int = 3,
+    *,
+    dtype=torch.float32,
+) -> OccupancyMLP:
+    """Fresh trainable parameters on the generator's device: Glorot-uniform
+    weights in ``+-sqrt(6 / (in + out))``, (in, out) layout, zero biases."""
+    mlp = OccupancyMLP(n_in, n_hidden, n_out, device=generator.device, dtype=dtype)
+    with torch.no_grad():
+        for w, fan in ((mlp.w1, n_in + n_hidden), (mlp.w2, n_hidden + n_out)):
+            s = float(np.sqrt(6.0 / fan))
+            w.uniform_(-s, s, generator=generator)
+    return mlp

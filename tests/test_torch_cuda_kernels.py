@@ -17,6 +17,10 @@ stream's bits.  ``fused_band_features``: rtol 1e-4 against the dense plain
 version, 1e-6 against ``fused_sense_ct``'s features (the same register FFT in
 another kernel: equal or a few ulp), equal from run to run.
 ``resolve_candidates`` is integers and one float32 compare: ``torch.equal``.
+Training on the card: ``make_dataset`` launches the sense kernel once, its
+features within rtol 1e-4 of the CPU plain path's; a wideband train step
+launches the wideband kernel once per stream, its loss within rtol 1e-5 of
+the loss over the packed plain path's energies.
 """
 
 import numpy as np
@@ -562,3 +566,60 @@ def test_process_radio_on_card_carries_the_link(tmp_path):
     argv = rt.nodes[1]._proc.args
     assert argv[argv.index("--device") + 1].startswith("cuda")
     assert len(rt.nodes[0].rx_packets) > 0 and rt.nodes[0].radio.device.type == "cuda"
+
+
+def test_make_dataset_on_card_launches_sense_kernel_once_and_matches_cpu(monkeypatch):
+    """make_dataset's features come from one fused_sense_ct launch, equal to the
+    plain path's on the CPU on the same scene (kernel vs plain: rtol 1e-4)."""
+    from cognitive_radio_network_tpu_torch.models import sense_classify
+    from cognitive_radio_network_tpu_torch.models import train as ttrain
+
+    seen = {}
+    synth = ttrain.synthesize_scene
+
+    def capture(*args, **kw):
+        seen["planes"] = synth(*args, **kw)
+        return seen["planes"]
+
+    monkeypatch.setattr(ttrain, "synthesize_scene", capture)
+    before = fused_sense_ct.launches
+    feats, labels = ttrain.make_dataset(torch.Generator(device="cuda").manual_seed(0), 400)
+    torch.cuda.synchronize()
+    assert fused_sense_ct.launches == before + 1
+    assert feats.device.type == "cuda" and feats.shape == (400, 4) and labels.shape == (400, 3)
+    planes = seen["planes"].cpu()
+    want = sense_classify((planes[..., 0], planes[..., 1]), reference_weights())["features"]
+    torch.testing.assert_close(feats.cpu(), want, rtol=1e-4, atol=0.0)
+
+
+def test_wideband_train_step_on_card_launches_kernel_per_stream_and_matches_packed():
+    """One step over a batch of B streams launches the wideband kernel B times;
+    its loss equals the loss over the packed plain path's energies (rtol 1e-5)."""
+    from cognitive_radio_network_tpu_torch.models.distributed import (
+        _loss,
+        make_sharded_train_step,
+        wideband_features,
+    )
+    from cognitive_radio_network_tpu_torch.parallel.wideband import wideband_sense
+
+    cfg = WidebandConfig()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    b, t = 3, 1024
+    planes = 1e-3 * torch.randn(b, t * 64, 2, generator=g, device="cuda")
+    labels = torch.zeros(b, t // cfg.block_len, 64, device="cuda")
+    n = torch.arange(t * 64, device="cuda", dtype=torch.float64)
+    for i, k in enumerate((5, 20, 41)):
+        ph = 2 * torch.pi * ((k * n) % 64) / 64
+        planes[i] += torch.stack([ph.cos(), ph.sin()], dim=-1).float()
+        labels[i, :, k] = 1.0
+    init_fn, step_fn = make_sharded_train_step(cfg, learning_rate=3e-2)
+    state = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        res = wideband_sense(planes, torch.from_numpy(cfg.taps()).cuda(), cfg, use_fused=False)
+        want = _loss(state.params, wideband_features(res["energy"], res["noise"]), labels)
+    before = wideband_energy_fused.launches
+    state, loss = step_fn(state, planes, labels)
+    torch.cuda.synchronize()
+    assert wideband_energy_fused.launches == before + b
+    assert state.step == 1 and loss.device.type == "cuda"
+    torch.testing.assert_close(loss, want, rtol=1e-5, atol=0.0)

@@ -68,7 +68,13 @@ def test_port_modules_load_without_jax():
         "cognitive_radio_network_tpu_torch.engines.markov_pu, "
         "cognitive_radio_network_tpu_torch.engines.predictive_node, "
         "cognitive_radio_network_tpu_torch.controllers, "
-        "cognitive_radio_network_tpu_torch.controllers.template\n"
+        "cognitive_radio_network_tpu_torch.controllers.template, "
+        "cognitive_radio_network_tpu_torch.models.train, "
+        "cognitive_radio_network_tpu_torch.tools, "
+        "cognitive_radio_network_tpu_torch.tools.spectrum_analyzer, "
+        "cognitive_radio_network_tpu_torch.phy.gmsk, "
+        "cognitive_radio_network_tpu_torch.utils.timer, "
+        "cognitive_radio_network_tpu_torch.utils.profiling\n"
         "from cognitive_radio_network_tpu_torch.runtime import engine_names, controller_names\n"
         "assert len(engine_names()) == 5 and controller_names() == ['SC_Template']\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
