@@ -152,8 +152,28 @@ one line; any failure raises, and the exit code is then non-zero.
    ``spectrum`` command on a capture of a PU on CH2 made on the card (the peak
    within CH2's band); ``gmsk_frame`` on the card within atol 1e-6 of the CPU.
 
+27. the multi-device layer on the card, N ranks in N processes sharing it
+   through ``gloo`` (NCCL takes one card per rank): the fused sharded wideband
+   energy (``sharded_wideband_energy_fused``, kernel 3 per rank seeded with the
+   left neighbour's last 4 pair rows) at T=524,288 over time=2 and time=4,
+   ``torch.equal`` to kernel 3 on the whole stream, one launch per rank, and
+   ``make_wideband_fn(cfg, mesh=)`` alike; ms per call by CUDA events back to
+   back and by the host clock, ranks side by side.
+28. over time=2: ``ShardedFrameReceiver`` on phase 8's link block (256/256
+   frames, byte-equal to ``receive_block(k=256)`` on one device) and
+   ``ShardedStreamReceiver.receive_device`` on phase 17's adaptive stream
+   (2,048/2,048 frames byte-equal to ``StreamReceiver.process``, no sample
+   copied from the host); extract launches per rank; host time.
+29. the sharded wideband train step at phase 25's width, 20 steps on
+   (data=2) and on (time=2), from ``init_fn``'s broadcast parameters, losses
+   within rtol 1e-5 of the one-device step's from the same parameters; the
+   same on a world of one over NCCL; kernel 3 launches per step per rank.
+30. ``graft_entry.dryrun_multichip(n)`` for n = 2 and 4 (gloo), which holds
+   its sharded loss and frames to one device's.
+
 The line before the last is a JSON object with each kernel's launches on its
-path (kernels 1 and 3 also on the training paths), error, times and bound (the least time the card could take: bytes moved
+path (kernels 1 and 3 also on the training paths, kernels 2 and 3 on the
+sharded paths of phases 27-29 as ``sharded_launches``), error, times and bound (the least time the card could take: bytes moved
 over 3.35 TB/s or the float32 operations the function needs, with an FFT for
 a DFT, over 67 TFLOP/s, whichever is larger).
 The last line is ``{"ok": true, "device": {...}}``.
@@ -201,6 +221,10 @@ DIST_PREDICTIVE_WARM_S, DIST_PREDICTIVE_S = 2.0, 12.0  # bench.py:478-488 runs 2
 DIST_PORT = 47760  # TCP ports 47760-47763 of the distributed phases
 TRAIN_EXAMPLES, TRAIN_STEPS = 400, 3000  # tests/test_scenarios.py:186-190
 WIDE_TRAIN_STEPS = 150  # tests/test_distributed_training.py:29
+WIDE_COMPARED_STEPS = 20  # sharded vs one-device train steps of phase 29
+# candidates per shard of the sharded stream: a 2-way split of a block of the
+# adaptive stream puts about 263 frame starts in the first shard's 2**20 samples
+SHARD_STREAM_K = 320
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate
 FP32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
 
@@ -342,6 +366,25 @@ def launch_path_table(rr, ri, offs, smi: str) -> None:
     phase("launch-path", f"least of 3 runs of 2000 calls each, by the host clock; {smi}")
 
 
+def link_block(dev, rng):
+    """The OFDM link's block (phase 8): ``LINK_FRAMES`` default-config frames of
+    ``LINK_PAYLOAD`` bytes assembled on the card, each followed by ``LINK_GAP``
+    zeros, as planes; headers and payloads drawn from ``rng``.  Returns (re,
+    im, headers, payloads, the (F, flen, 2) frames)."""
+    import numpy as np
+    import torch
+
+    from cognitive_radio_network_tpu_torch.phy import OFDMFrameConfig, OFDMFrameGen
+
+    gen = OFDMFrameGen(OFDMFrameConfig(), LINK_PAYLOAD)
+    hdrs = rng.integers(0, 256, (LINK_FRAMES, 8)).astype(np.uint8)
+    pays = rng.integers(0, 256, (LINK_FRAMES, LINK_PAYLOAD)).astype(np.uint8)
+    frames = gen.assemble(hdrs, pays, as_planes=True, device=dev)  # (F, flen, 2)
+    gap = torch.zeros((LINK_FRAMES, LINK_GAP, 2), device=dev)
+    block = torch.cat([frames, gap], dim=1).reshape(-1, 2)
+    return block[:, 0].contiguous(), block[:, 1].contiguous(), hdrs, pays, frames
+
+
 def link_phases(dev, smi: str) -> dict:
     """Phases 7-9: the extract kernel against its plain version, the OFDM link
     at full size, and their times.  Returns the kernel's entry of the kernels
@@ -392,13 +435,8 @@ def link_phases(dev, smi: str) -> dict:
 
     # 8. the OFDM link at full size (port of tests/tpu_gates.py::gate_ofdm_decode)
     rng = np.random.default_rng(0)
-    hdrs = rng.integers(0, 256, (LINK_FRAMES, 8)).astype(np.uint8)
-    pays = rng.integers(0, 256, (LINK_FRAMES, LINK_PAYLOAD)).astype(np.uint8)
     t0 = time.perf_counter()
-    frames = gen.assemble(hdrs, pays, as_planes=True)  # (F, flen, 2), on the card by default
-    gap = torch.zeros((LINK_FRAMES, LINK_GAP, 2), device=dev)
-    block = torch.cat([frames, gap], dim=1).reshape(-1, 2)
-    lr, li = block[:, 0].contiguous(), block[:, 1].contiguous()
+    lr, li, hdrs, pays, frames = link_block(dev, rng)
     torch.cuda.synchronize()
     asm_s = time.perf_counter() - t0
     torch.testing.assert_close(
@@ -857,6 +895,36 @@ def wideband_and_dense_phases(dev, smi: str, sense_planar, pu_trace, params) -> 
     ]
 
 
+def adaptive_blocks(dev):
+    """The adaptive stream of phase 17 (bench.py:324-374), made on the card:
+    ``STREAM_FRAMES`` frames of ``STREAM_PAYLOAD`` bytes alternating
+    qam4/h128 and qam16/none, each followed by ``STREAM_GAP`` zeros, cut into
+    ``STREAM_BLOCKS`` blocks of contiguous planes.  Returns (blocks, headers,
+    payloads, samples per pair of frames)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cognitive_radio_network_tpu_torch.phy import OFDMFrameConfig, OFDMFrameGen
+
+    cfg_a = OFDMFrameConfig()
+    cfg_b = dataclasses.replace(cfg_a, mod_scheme="qam16", fec0="none")
+    rng = np.random.default_rng(17)
+    hdrs = rng.integers(0, 256, (STREAM_FRAMES, 8)).astype(np.uint8)
+    pays = rng.integers(0, 256, (STREAM_FRAMES, STREAM_PAYLOAD)).astype(np.uint8)
+    gen_a, gen_b = OFDMFrameGen(cfg_a, STREAM_PAYLOAD), OFDMFrameGen(cfg_b, STREAM_PAYLOAD)
+    fr_a = gen_a.assemble(hdrs[0::2], pays[0::2], as_planes=True, device=dev)
+    fr_b = gen_b.assemble(hdrs[1::2], pays[1::2], as_planes=True, device=dev)
+    gap = torch.zeros((STREAM_FRAMES // 2, STREAM_GAP, 2), device=dev)
+    pair = torch.cat([fr_a, gap, fr_b, gap], dim=1)  # frame a, gap, frame b, gap
+    whole = pair.reshape(-1, 2)
+    a_blk = whole.shape[0] // STREAM_BLOCKS
+    blocks = [(whole[i * a_blk : (i + 1) * a_blk, 0].contiguous(),
+               whole[i * a_blk : (i + 1) * a_blk, 1].contiguous()) for i in range(STREAM_BLOCKS)]
+    return blocks, hdrs, pays, pair.shape[1]
+
+
 def stream_phases(dev, smi: str) -> tuple[dict, dict]:
     """Phases 14-17: the resolve kernel against its plain version, the
     adaptive gate, the three streaming APIs, and the adaptive stream at full
@@ -1016,22 +1084,11 @@ def stream_phases(dev, smi: str) -> tuple[dict, dict]:
           f"(first calls; the Viterbi loop is a launch per time step)")
 
     # 17. the adaptive stream at full width (bench.py:324-374)
-    rng = np.random.default_rng(17)
-    hdrs = rng.integers(0, 256, (STREAM_FRAMES, 8)).astype(np.uint8)
-    pays = rng.integers(0, 256, (STREAM_FRAMES, STREAM_PAYLOAD)).astype(np.uint8)
     t0 = time.perf_counter()
+    blocks, hdrs, pays, pair_len = adaptive_blocks(dev)
     gen_a, gen_b = OFDMFrameGen(cfg_a, STREAM_PAYLOAD), OFDMFrameGen(cfg_b, STREAM_PAYLOAD)
-    fr_a = gen_a.assemble(hdrs[0::2], pays[0::2], as_planes=True)
-    fr_b = gen_b.assemble(hdrs[1::2], pays[1::2], as_planes=True)
-    gap = torch.zeros((STREAM_FRAMES // 2, STREAM_GAP, 2), device=dev)
-    pair = torch.cat([fr_a, gap, fr_b, gap], dim=1)  # frame a, gap, frame b, gap
-    pair_len = pair.shape[1]
-    whole = pair.reshape(-1, 2)
-    n_ad = whole.shape[0]
-    a_blk = n_ad // STREAM_BLOCKS
-    blocks = [(whole[i * a_blk : (i + 1) * a_blk, 0].contiguous(),
-               whole[i * a_blk : (i + 1) * a_blk, 1].contiguous()) for i in range(STREAM_BLOCKS)]
-    del fr_a, fr_b, gap, pair, whole
+    a_blk = blocks[0][0].shape[0]
+    n_ad = STREAM_BLOCKS * a_blk
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     srx = StreamReceiver(cfg_a, max_frames_per_block=STREAM_FRAMES // STREAM_BLOCKS + 8)
@@ -1704,6 +1761,31 @@ def distributed_phases(smi: str, inproc: dict) -> dict:
     return launches
 
 
+def wide_batch(dev):
+    """The wideband train step's batch (phase 25) made on the card: ``APPLY_BATCH``
+    streams of T=``APPLY_T`` at ``WidebandConfig()``, 0.01 noise plus a unit
+    tone at the centre of each active channel (half of them, at random).
+    Returns (planes (B, T*64, 2), labels (B, C, 64), active (B, 64))."""
+    import numpy as np
+    import torch
+
+    m, bl = 64, 128
+    cycles = APPLY_T // bl
+    g = torch.Generator(device=dev).manual_seed(25)
+    active = torch.rand(APPLY_BATCH, m, generator=g, device=dev) < 0.5
+    phi = 2 * np.pi * torch.rand(APPLY_BATCH, m, 1, generator=g, device=dev, dtype=torch.float64)
+    # a unit tone at channel k's centre repeats every M samples: one period per
+    # stream, the sum over its active channels, tiled over T
+    k = torch.arange(m, device=dev, dtype=torch.float64)
+    ang = 2 * np.pi * k[:, None] * k[None, :] / m + phi  # (B, channel, n mod M)
+    on = active[..., None].double()
+    period = torch.stack([(on * ang.cos()).sum(1), (on * ang.sin()).sum(1)], dim=-1).float()
+    batch = 0.01 * torch.randn(APPLY_BATCH, APPLY_T * m, 2, generator=g, device=dev)
+    batch += period.repeat(1, APPLY_T, 1)
+    labels = active.float()[:, None, :].expand(APPLY_BATCH, cycles, m).contiguous()
+    return batch, labels, active
+
+
 def training_phases(dev, smi: str) -> dict:
     """Phases 24-26: training at full width (the sense kernel in
     ``make_dataset`` and the evaluation), the wideband train step (the
@@ -1834,20 +1916,8 @@ def training_phases(dev, smi: str) -> dict:
 
     # 25. the wideband train step at full width on phase 11's batch shape
     wcfg = WidebandConfig()
-    m, bl = wcfg.num_channels, wcfg.block_len
-    cycles = APPLY_T // bl
-    g = gen(25)
-    active = torch.rand(APPLY_BATCH, m, generator=g, device=dev) < 0.5
-    phi = 2 * np.pi * torch.rand(APPLY_BATCH, m, 1, generator=g, device=dev, dtype=torch.float64)
-    # a unit tone at channel k's centre repeats every M samples: one period per
-    # stream, the sum over its active channels, tiled over T
-    k = torch.arange(m, device=dev, dtype=torch.float64)
-    ang = 2 * np.pi * k[:, None] * k[None, :] / m + phi  # (B, channel, n mod M)
-    on = active[..., None].double()
-    period = torch.stack([(on * ang.cos()).sum(1), (on * ang.sin()).sum(1)], dim=-1).float()
-    batch = 0.01 * torch.randn(APPLY_BATCH, APPLY_T * m, 2, generator=g, device=dev)
-    batch += period.repeat(1, APPLY_T, 1)
-    wlabels = active.float()[:, None, :].expand(APPLY_BATCH, cycles, m).contiguous()
+    m = wcfg.num_channels
+    batch, wlabels, active = wide_batch(dev)
     init_fn, step_fn = make_sharded_train_step(wcfg, learning_rate=3e-2)
     wstate = init_fn(gen(0))
     with torch.no_grad():
@@ -1939,6 +2009,303 @@ def training_phases(dev, smi: str) -> dict:
               f"{torch.equal(on_card.cpu(), on_cpu)})")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host ms of ``reps`` synchronized calls."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def wideband_rank(d: int, device: str) -> dict:
+    """Phase 27 on one of ``d`` ranks sharing the card: the fused sharded
+    energy at full width against kernel 3 on the whole stream."""
+    import torch
+    import torch.distributed as dist
+
+    from cognitive_radio_network_tpu_torch.ops import wideband_energy_fused
+    from cognitive_radio_network_tpu_torch.parallel import MeshSpec, WidebandConfig, make_mesh
+    from cognitive_radio_network_tpu_torch.parallel import make_wideband_fn
+    from cognitive_radio_network_tpu_torch.parallel.collectives import all_gather
+    from cognitive_radio_network_tpu_torch.parallel.mesh import block_range
+    from cognitive_radio_network_tpu_torch.parallel.wideband import sharded_wideband_energy_fused
+
+    mesh = make_mesh(MeshSpec(time=d), device=device)
+    dev = torch.empty(0, device=device).device  # "cuda": the rank's card
+    cfg = WidebandConfig()
+    g = torch.Generator(device=dev).manual_seed(27)
+    xr = torch.randn(WIDE_T * 64, generator=g, device=dev)
+    xi = torch.randn(WIDE_T * 64, generator=g, device=dev)
+    taps = torch.from_numpy(cfg.taps()).to(dev)
+    whole = wideband_energy_fused(xr, xi, taps, cfg)  # one device: the reference of the phase
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts()
+    got = sharded_wideband_energy_fused(xr, xi, mesh, cfg)
+    launches = wideband_energy_fused.launches
+    lo, hi = block_range(WIDE_T // cfg.block_len, mesh, "time")
+    fn_out = make_wideband_fn(cfg, mesh=mesh, device=dev)((xr, xi))
+    fn_launches = wideband_energy_fused.launches - launches
+    equal = (torch.equal(got, whole[lo:hi]) and torch.equal(all_gather(got, mesh, "time"), whole)
+             and torch.equal(fn_out["energy"], whole[lo:hi]))
+    dist.barrier()
+    ms = statistics.median(time_ms(lambda: sharded_wideband_energy_fused(xr, xi, mesh, cfg), [()]))
+    dist.barrier()
+    wall = host_ms(lambda: sharded_wideband_energy_fused(xr, xi, mesh, cfg), 10)
+    # the kernel alone on this rank's segment, the others' running beside it
+    seg = slice(lo * cfg.block_len * 64, hi * cfg.block_len * 64)
+    dist.barrier()
+    kern = statistics.median(time_ms(lambda: wideband_energy_fused(xr[seg], xi[seg], taps, cfg), [()]))
+    return {"equal": equal, "launches": launches, "fn_launches": fn_launches, "ms": ms,
+            "host_ms": wall, "kernel_ms": kern, "cycles": hi - lo,
+            "backend": dist.get_backend(), "world": dist.get_world_size()}
+
+
+def link_rank(device: str) -> dict:
+    """Phase 28 on one of 2 ranks: the sharded fixed-config receiver on the
+    link block, then the sharded streaming receiver's ``receive_device`` on
+    the adaptive stream, each against its one-device receiver."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import cognitive_radio_network_tpu_torch.parallel.phylink as phylink
+    from cognitive_radio_network_tpu_torch.graft_entry import _frames
+    from cognitive_radio_network_tpu_torch.ops import extract_windows
+    from cognitive_radio_network_tpu_torch.parallel import MeshSpec, make_mesh
+    from cognitive_radio_network_tpu_torch.phy import OFDMFrameConfig, OFDMFrameSync, StreamReceiver
+
+    mesh = make_mesh(MeshSpec(time=2), device=device)
+    dev = torch.empty(0, device=device).device  # "cuda": the rank's card
+    cfg = OFDMFrameConfig()
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+
+    lr, li, _, _, _ = link_block(dev, np.random.default_rng(0))
+    one = _frames(
+        OFDMFrameSync(cfg, LINK_PAYLOAD, device=dev).receive_block((lr, li), k=LINK_FRAMES))
+    rx = phylink.ShardedFrameReceiver(cfg, LINK_PAYLOAD, mesh, k_per_shard=LINK_FRAMES, device=dev)
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts()
+    frames = _frames(rx.receive((lr, li)))
+    out["link_launches"] = extract_windows.launches
+    out["link_frames"] = len(frames)
+    out["link_equal"] = frames == one and len(one) == LINK_FRAMES and all(f[4] for f in frames)
+    dist.barrier()
+    out["link_ms"] = host_ms(lambda: rx.receive((lr, li)), 5)
+
+    blocks, _, pays, _ = adaptive_blocks(dev)
+    one_rx = StreamReceiver(cfg, max_frames_per_block=STREAM_FRAMES // STREAM_BLOCKS + 8, device=dev)
+    t0 = time.perf_counter()
+    one = sum((_frames(one_rx.process(b)) for b in blocks), [])
+    out["one_pass_s"] = time.perf_counter() - t0
+    moved = []  # samples receive_device copied from the host to the card
+    place = phylink._place
+
+    def spy(x, to):
+        if x.device.type != torch.device(to).type:
+            moved.append(x.shape[0])
+        return place(x, to)
+
+    srx = phylink.ShardedStreamReceiver(cfg, mesh, k_per_shard=SHARD_STREAM_K, device=dev)
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts()
+    phylink._place = spy
+    try:
+        t0 = time.perf_counter()
+        sframes = sum((_frames(srx.receive_device(*b)) for b in blocks), [])
+        torch.cuda.synchronize()
+        out["stream_pass_s"] = time.perf_counter() - t0
+    finally:
+        phylink._place = place
+    out["stream_launches"] = extract_windows.launches
+    out["stream_frames"] = len(sframes)
+    out["stream_moved"] = sum(moved)
+    out["stream_equal"] = (sframes == one and len(one) == STREAM_FRAMES
+                           and [f[2] for f in sframes] == [bytes(p) for p in pays])
+    dist.barrier()
+    t0 = time.perf_counter()
+    again = sum((len(srx.receive_device(*b)) for b in blocks), 0)
+    out["stream_pass2_s"] = time.perf_counter() - t0
+    out["stream_frames2"] = again
+    t0 = time.perf_counter()
+    sum((len(one_rx.process(b)) for b in blocks), 0)
+    out["one_pass2_s"] = time.perf_counter() - t0
+    out["cfgs"] = sorted({f[5] for f in sframes})
+    return out
+
+
+def train_rank(specs: tuple, device: str) -> dict:
+    """Phase 29 on one rank: 20 sharded wideband train steps at full width on
+    each mesh of ``specs`` (time, channel, data), from the parameters of
+    ``init_fn`` (the mesh's first rank's), against the one-device step from
+    the same parameters."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from cognitive_radio_network_tpu_torch.models.distributed import make_sharded_train_step
+    from cognitive_radio_network_tpu_torch.models.train import TrainConfig, TrainState, make_optimizer
+    from cognitive_radio_network_tpu_torch.ops import wideband_energy_fused
+    from cognitive_radio_network_tpu_torch.parallel import MeshSpec, WidebandConfig, make_mesh
+
+    dev = torch.empty(0, device=device).device  # "cuda": the rank's card
+    batch, labels, _ = wide_batch(dev)
+    wcfg = WidebandConfig()
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    for spec in specs:
+        mesh = make_mesh(MeshSpec(*spec), device=device)
+        init_fn, step_fn = make_sharded_train_step(wcfg, learning_rate=3e-2, mesh=mesh, device=dev)
+        state = init_fn(torch.Generator(device=dev).manual_seed(dist.get_rank()))
+        params = copy.deepcopy(state.params)
+        one = TrainState(params, make_optimizer(TrainConfig(3e-2), params), 0)
+        _, one_step = make_sharded_train_step(wcfg, learning_rate=3e-2, device=dev)
+        want = []
+        for _ in range(WIDE_COMPARED_STEPS):
+            one, loss = one_step(one, batch, labels)
+            want.append(loss)
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = []
+        for _ in range(WIDE_COMPARED_STEPS):
+            state, loss = step_fn(state, batch, labels)
+            got.append(loss)
+        got = torch.stack(got).cpu().tolist()
+        step_ms = (time.perf_counter() - t0) / WIDE_COMPARED_STEPS * 1e3
+        want = torch.stack(want).cpu().tolist()
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        out[spec] = {"losses": got, "one_device": want, "rel": rel, "step_ms": step_ms,
+                     "launches": wideband_energy_fused.launches}
+    return out
+
+
+def sharded_phases(smi: str) -> dict:
+    """Phases 27-30: the multi-device layer on the card, N ranks sharing it
+    through ``gloo`` (NCCL takes one card per rank; the world of one runs
+    NCCL).  Returns the sharded launches of kernels 2 and 3."""
+    from cognitive_radio_network_tpu_torch.graft_entry import dryrun_multichip
+    from cognitive_radio_network_tpu_torch.parallel.launch import run_ranks
+
+    launches = {"wideband": {}, "extract": {}}
+
+    # 27. the fused sharded wideband energy at full width, time=2 and time=4
+    for d in (2, 4):
+        t0 = time.perf_counter()
+        res = run_ranks(wideband_rank, d, backend="gloo", args=(d, "cuda"), timeout_s=600)
+        wall = time.perf_counter() - t0
+        r0 = res[0]
+        if not all(r["equal"] for r in res):
+            raise AssertionError(f"time={d}: the sharded energies are not torch.equal to kernel 3 "
+                                 f"on the whole stream")
+        if [r["launches"] for r in res] != [1] * d or [r["fn_launches"] for r in res] != [1] * d:
+            raise AssertionError(f"time={d}: kernel 3 launches per rank "
+                                 f"{[r['launches'] for r in res]}, not 1 each")
+        launches["wideband"][f"sharded_wideband_energy_fused time={d}, per rank"] = \
+            [r["launches"] for r in res]
+        n_wide = WIDE_T * 64
+        b_ms, b_by = bound(2 * n_wide // d * 4 + r0["cycles"] * 64 * 4 + 2 * 4 * 128 * 4, 0)
+        per_rank = {k: ", ".join(f"{r[k]:.4f}" for r in res) for k in ("ms", "host_ms", "kernel_ms")}
+        phase("sharded-wideband", f"backend={r0['backend']} world={r0['world']} time={d}: "
+              f"sharded_wideband_energy_fused at T={WIDE_T} ({n_wide / 1e6:.1f} M wide "
+              f"samples): every rank's {r0['cycles']} cycles and the gathered whole torch.equal "
+              f"to kernel 3 on the whole stream, make_wideband_fn(cfg, mesh=) too; kernel 3 "
+              f"launches per rank {[r['launches'] for r in res]}; per call, ranks side by side: "
+              f"{per_rank['ms']} ms by CUDA events back to back, {per_rank['host_ms']} ms host "
+              f"time per synchronized call, the kernel alone on a rank's segment "
+              f"{per_rank['kernel_ms']} ms (bound {b_ms:.4f} ms by {b_by}); halo 4 KB per call "
+              f"by one ring shift through the host; {wall:.1f} s with the ranks' start; {smi}")
+
+    # 28. the sharded receivers, time=2
+    t0 = time.perf_counter()
+    (r0, r1) = run_ranks(link_rank, 2, backend="gloo", args=("cuda",), timeout_s=900)
+    wall = time.perf_counter() - t0
+    for r in (r0, r1):
+        if not (r["link_equal"] and r["stream_equal"]):
+            raise AssertionError(f"sharded receivers: link {r['link_frames']}/{LINK_FRAMES} "
+                                 f"equal {r['link_equal']}, stream {r['stream_frames']}/"
+                                 f"{STREAM_FRAMES} equal {r['stream_equal']}")
+        if r["stream_frames2"] != STREAM_FRAMES or r["stream_moved"]:
+            raise AssertionError(f"second pass {r['stream_frames2']} frames; receive_device "
+                                 f"copied {r['stream_moved']} samples from the host")
+        if r["link_launches"] < 2 or r["stream_launches"] < 2 * STREAM_BLOCKS:
+            raise AssertionError(f"extract launches per rank: link {r['link_launches']}, "
+                                 f"stream {r['stream_launches']}")
+    launches["extract"]["ShardedFrameReceiver.receive, per rank"] = \
+        [r0["link_launches"], r1["link_launches"]]
+    launches["extract"]["ShardedStreamReceiver.receive_device pass of 4 blocks, per rank"] = \
+        [r0["stream_launches"], r1["stream_launches"]]
+    phase("sharded-link", f"backend={r0['backend']} world={r0['world']} time=2: "
+          f"ShardedFrameReceiver(k_per_shard={LINK_FRAMES}) on the link block: "
+          f"{r0['link_frames']}/{LINK_FRAMES} frames, byte-equal to receive_block(k="
+          f"{LINK_FRAMES}) on one device; extract launches per rank "
+          f"{[r0['link_launches'], r1['link_launches']]}; {r0['link_ms']:.3f}, "
+          f"{r1['link_ms']:.3f} ms host time per synchronized call; {smi}")
+    phase("sharded-link", f"backend={r0['backend']} world={r0['world']} time=2: "
+          f"ShardedStreamReceiver(k_per_shard={SHARD_STREAM_K}).receive_device on the adaptive "
+          f"stream ({STREAM_BLOCKS} blocks): {r0['stream_frames']}/{STREAM_FRAMES} frames "
+          f"({', '.join(r0['cfgs'])}), byte-equal to StreamReceiver.process on one device, "
+          f"payloads equal to those sent, {r0['stream_moved']} samples copied from the host; "
+          f"extract launches per rank {[r0['stream_launches'], r1['stream_launches']]}; a pass "
+          f"{r0['stream_pass_s']:.3f} s (first), {r0['stream_pass2_s']:.3f} s (second, "
+          f"{STREAM_FRAMES / r0['stream_pass2_s']:.0f} frames/s), one device's process "
+          f"{r0['one_pass_s']:.3f} s (first), {r0['one_pass2_s']:.3f} s (second) by host clock "
+          f"on rank 0; {wall:.1f} s with the ranks' start; {smi}")
+
+    # 29. the sharded train step at full width, data=2 and time=2; NCCL's world of one
+    specs = ((1, 1, 2), (2, 1, 1))
+    t0 = time.perf_counter()
+    res = run_ranks(train_rank, 2, backend="gloo", args=(specs, "cuda"), timeout_s=900)
+    res += run_ranks(train_rank, 1, backend="nccl", args=(((1, 1, 1),), "cuda"), timeout_s=600)
+    wall = time.perf_counter() - t0
+    for r in res:
+        for spec in (s for s in r if isinstance(s, tuple)):
+            if r[spec]["rel"] > 1e-5:
+                raise AssertionError(f"backend={r['backend']} mesh {spec}: losses part from the "
+                                     f"one-device step's by rtol {r[spec]['rel']:.2e}")
+    names = {(1, 1, 2): "data=2", (2, 1, 1): "time=2", (1, 1, 1): "world of one"}
+    streams = {(1, 1, 2): APPLY_BATCH // 2, (2, 1, 1): APPLY_BATCH, (1, 1, 1): APPLY_BATCH}
+    for r in res:
+        for spec in (s for s in r if isinstance(s, tuple)):
+            if r[spec]["launches"] != streams[spec] * WIDE_COMPARED_STEPS:
+                raise AssertionError(f"{names[spec]}: {r[spec]['launches']} kernel 3 launches "
+                                     f"in {WIDE_COMPARED_STEPS} steps")
+    for r in (res[0], res[-1]):  # rank 0 of each world
+        for spec in (s for s in r if isinstance(s, tuple)):
+            v = r[spec]
+            launches["wideband"][f"train step {names[spec]}, per rank per step"] = \
+                v["launches"] // WIDE_COMPARED_STEPS
+            phase("sharded-training", f"backend={r['backend']} world={r['world']} "
+                  f"{names[spec]}: {WIDE_COMPARED_STEPS} sharded steps at WidebandConfig() on "
+                  f"({APPLY_BATCH}, {APPLY_T * 64}, 2) from init_fn's broadcast parameters: "
+                  f"loss {v['losses'][0]:.6f} -> {v['losses'][-1]:.6f}, one device "
+                  f"{v['one_device'][0]:.6f} -> {v['one_device'][-1]:.6f}, max rel diff "
+                  f"{v['rel']:.2e} (rtol 1e-5); {v['launches'] // WIDE_COMPARED_STEPS} kernel 3 "
+                  f"launches per step per rank; {v['step_ms']:.3f} ms per step by host clock; "
+                  f"{smi}")
+    phase("sharded-training", f"phase 29 in {wall:.1f} s with the ranks' start")
+
+    # 30. the port's dry run on 2 and 4 ranks, numerics held to one device
+    for n in (2, 4):
+        t0 = time.perf_counter()
+        out = dryrun_multichip(n, backend="gloo")
+        phase("dryrun", f"backend=gloo world={n}: dryrun_multichip({n}) passed in "
+              f"{time.perf_counter() - t0:.1f} s: mesh {out['mesh']}, loss {out['loss']:.6f} "
+              f"(one device {out['one_device_loss']:.6f}, rtol 1e-5), fixed-config frames "
+              f"{out['phylink_frames']}/{out['placed']} and streaming frames "
+              f"{out['adaptive_frames']}/{out['placed']} byte-equal to one device's; {smi}")
     return launches
 
 
@@ -2187,6 +2554,7 @@ def main() -> int:
     scn = scenario_phases(smi)
     dist = distributed_phases(smi, scn)
     train = training_phases(dev, smi)
+    sharded = sharded_phases(smi)
     extract_entry.update(stream_extract)
     extract_entry["max_abs_err"] = max(
         extract_entry["max_abs_err"], stream_extract["stream_step_max_abs_err"])
@@ -2209,6 +2577,8 @@ def main() -> int:
                               "evaluation": train["evaluation"]},
     }, extract_entry, *new_entries, resolve_entry]
     new_entries[0]["training_launches"] = {"train_steps": train["train_steps"]}
+    new_entries[0]["sharded_launches"] = sharded["wideband"]
+    extract_entry["sharded_launches"] = sharded["extract"]
     extract_entry["scenario_launches"] = {
         "two_node_link": scn["link"], "eight_node.cfg": scn["eight_node"],
         "predictive_model.cfg": scn["predictive_extract"],

@@ -1,8 +1,18 @@
-"""The wideband sense pipeline on one device (port of
-``cognitive_radio_network_tpu/parallel``).  The mesh, the halo exchange and
-the sharded forms of the reference span several devices and are not part of
-the one-device pipeline here."""
+"""Scale-out: device meshes, overlap-save halo exchange, sharded pipelines
+(port of ``cognitive_radio_network_tpu/parallel``).
 
+The reference runs one compiled program over a ``jax.sharding.Mesh`` with
+in-graph collectives; here one process per rank runs the ``shard_map`` body
+of each sharded function, over ``torch.distributed`` process groups named by
+a ``DeviceMesh`` (:mod:`.mesh`), with explicit collectives (:mod:`.collectives`:
+ring shifts for FIR and frame halos, sums for gradients and decode windows).
+:mod:`.multihost` starts the world, :mod:`.launch` runs a function on N local
+ranks, :mod:`.phylink` holds the sharded OFDM receivers.  With no mesh the
+wideband pipeline runs on one device.
+"""
+
+from cognitive_radio_network_tpu_torch.parallel.halo import halo_exchange, sharded_channelize
+from cognitive_radio_network_tpu_torch.parallel.mesh import MeshSpec, make_mesh
 from cognitive_radio_network_tpu_torch.parallel.wideband import (
     WidebandConfig,
     make_wideband_fn,
@@ -10,4 +20,13 @@ from cognitive_radio_network_tpu_torch.parallel.wideband import (
     wideband_sense,
 )
 
-__all__ = ["WidebandConfig", "wideband_sense", "wideband_energy_packed", "make_wideband_fn"]
+__all__ = [
+    "make_mesh",
+    "MeshSpec",
+    "halo_exchange",
+    "sharded_channelize",
+    "WidebandConfig",
+    "wideband_sense",
+    "wideband_energy_packed",
+    "make_wideband_fn",
+]

@@ -68,8 +68,13 @@ def _bits_i32(x: torch.Tensor) -> torch.Tensor:
 
 def _scan_block_graph_packed(layout: OFDMFrameGen, rr, ri, n_valid, *, k: int) -> torch.Tensor:
     """:func:`_scan_block_graph` with its six outputs in one (K, 18) int32
-    record: [best, peak.bits, cfo.bits, hdr_ok, header[8], phy[6]]."""
-    bests, peaks, cfos, headers, phy, hdr_ok = _scan_block_graph(layout, rr, ri, n_valid, k=k)
+    record (:func:`_pack_scan`)."""
+    return _pack_scan(*_scan_block_graph(layout, rr, ri, n_valid, k=k))
+
+
+def _pack_scan(bests, peaks, cfos, headers, phy, hdr_ok) -> torch.Tensor:
+    """The block scan's six outputs in one (K, 18) int32 record: [best,
+    peak.bits, cfo.bits, hdr_ok, header[8], phy[6]]."""
     cols = [
         bests.to(torch.int32)[:, None],
         _bits_i32(peaks)[:, None],

@@ -35,6 +35,13 @@ def test_port_modules_load_without_jax():
         "cognitive_radio_network_tpu_torch.profile_link, "
         "cognitive_radio_network_tpu_torch.parallel, "
         "cognitive_radio_network_tpu_torch.parallel.wideband, "
+        "cognitive_radio_network_tpu_torch.parallel.mesh, "
+        "cognitive_radio_network_tpu_torch.parallel.collectives, "
+        "cognitive_radio_network_tpu_torch.parallel.halo, "
+        "cognitive_radio_network_tpu_torch.parallel.multihost, "
+        "cognitive_radio_network_tpu_torch.parallel.launch, "
+        "cognitive_radio_network_tpu_torch.parallel.phylink, "
+        "cognitive_radio_network_tpu_torch.graft_entry, "
         "cognitive_radio_network_tpu_torch.models.distributed, "
         "cognitive_radio_network_tpu_torch.signal.channelizer, "
         "cognitive_radio_network_tpu_torch.ops.fused_wideband, "
@@ -89,6 +96,26 @@ def test_port_modules_load_without_jax():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def _modules_loaded_in_a_rank() -> list:
+    """Run in a rank: load the multi-device layer, then list what of JAX and
+    of the JAX package the process holds."""
+    import cognitive_radio_network_tpu_torch.graft_entry  # noqa: F401
+    import cognitive_radio_network_tpu_torch.parallel.phylink  # noqa: F401
+
+    return sorted(
+        m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cognitive_radio_network_tpu")
+    )
+
+
+def test_a_rank_started_by_run_ranks_loads_without_jax():
+    """The test process holds JAX; a rank it starts (spawned, not forked)
+    does not."""
+    from cognitive_radio_network_tpu_torch.parallel.launch import run_ranks
+
+    got = run_ranks(_modules_loaded_in_a_rank, 2, backend="gloo", device="cpu", timeout_s=120)
+    assert got == [[], []]
 
 
 def test_every_spawned_argv_names_the_port():
