@@ -26,11 +26,14 @@ one line; any failure raises, and the exit code is then non-zero.
 6. times: median of 3 for the kernel and the plain version at C=4096 and
    C=256, with CUDA events, and for the kernel on bf16 input at C=4096; GB/s
    read and the share of 3.35 TB/s beside each bound.
-7. extract, kernel vs plain: ``extract_windows`` against
-   ``extract_windows_plain`` (``torch.equal``) on the OFDM link's block of
-   N=1,265,664 samples at K=256 windows of 4864 (frames) and 160 (timing
-   refinement) samples, with clipped offsets; at N < wlen; at an odd wlen
-   and unaligned offsets.
+7. extract, kernel vs plain: ``extract_window_sets`` against
+   ``extract_window_sets_plain`` (``torch.equal``, into its own windows and
+   into the caller's, ``out=``) on the OFDM link's block of N=1,265,664
+   samples at K=256 windows of 4864 (frames) and 160 (timing refinement)
+   samples, with clipped offsets; at N < wlen; at an odd wlen and unaligned
+   offsets; the stream step's three lengths in one launch on planes 4 bytes
+   past 16-byte alignment (``rr[1:]``) at offsets of every residue mod 4;
+   N below one set's wlen; K=0; a wlen of 0 beside another set.
 8. the OFDM link at full size: 256 default-config frames (qam4/crc32/h128,
    256-byte payloads, 80-sample gaps) assembled on the card into one block
    and decoded by one ``rx_block_fn(k=256)`` call: 256/256 frames intact,
@@ -38,10 +41,15 @@ one line; any failure raises, and the exit code is then non-zero.
    plain path; then ``receive_block`` on two 16-frame bursts as ``assemble``
    returns them on the card (qam16/none as complex64; v27/v27 with 64-byte
    payloads as (N, 2) planes).
-9. times: the host time of the extract wrapper's launch path (a host clock
-   over 2000 calls: its checks, its allocations, the whole call), then median
-   of 3 for the extract kernel and its plain version at both link shapes,
-   and for one ``rx_block_fn(k=256)`` call (MS/s, frames/s).
+9. times: the host time of the extract wrapper's launch path (a host clock,
+   the least of 10 runs of 300 calls: its checks, its allocation, the whole
+   call with and without ``out=``, one set and the stream step's three), then
+   for the link's frame gather (at its frame starts) and at both link shapes:
+   the kernel's time on the card per launch (``torch.profiler``), GB/s and
+   the share of 3.35 TB/s against the bound (each output byte written and
+   each distinct input sample read once), median of 3 by CUDA events for the
+   kernel and its plain version; and one ``rx_block_fn(k=256)`` call (MS/s,
+   frames/s).
 10. wideband, kernel vs plain: ``wideband_energy_fused`` against
    ``wideband_energy_fused_plain`` (rtol 1e-5, atol 1e-7) at T=524,288
    per-channel times (4096 sense cycles, 33.5 M wide samples) and at T=1,280
@@ -69,7 +77,9 @@ one line; any failure raises, and the exit code is then non-zero.
    busy time and idle share from a profiler trace), for the batch of streams
    through the kernel and through the packed path, and for the features-only
    sense kernel and its plain version at C=4096 (beside the 2.6950 ms its
-   dense-product predecessor took on this card at 700 W).
+   dense-product predecessor took on this card at 700 W); the wideband
+   kernel alone at T=131,072, 262,144 and 524,288: the profiler's time on the
+   card, CUDA events, the bound and its share.
 14. resolve, kernel vs plain: ``resolve_candidates`` against
    ``resolve_candidates_plain`` (``torch.equal``) on random candidate tables
    and on the full-width stream's K=520 columns; then times: the kernel and
@@ -86,11 +96,14 @@ one line; any failure raises, and the exit code is then non-zero.
    bench.py:324-374): 2,048 frames of 256 bytes alternating qam4/h128 and
    qam16/none, gap 512, 4 blocks, ``max_frames_per_block`` 520,
    ``fetch_group`` 8, ``feed_device(max_lag=18)`` + ``flush``: 2,048 frames,
-   payloads equal to those sent, mods alternating, all valid, exactly 4
-   extract launches and 1 resolve launch per step; ``extract_windows`` against
-   ``extract_windows_plain`` (``torch.equal``, and timed) on a step's own
-   buffer and K=520 candidates at each window length the step asks for (both
-   speculated configs' frames, the scan's header and refinement windows); then
+   payloads equal to those sent, mods alternating, all valid, exactly 2
+   extract launches (the refinement windows; the header windows and both
+   speculated configs' frame windows in one) and 1 resolve launch per step;
+   ``extract_window_sets`` against its plain version (``torch.equal``) on a
+   step's own buffer and K=520 candidates at the step's two launches, and
+   with candidates within 4864 of the buffer's end (each set clipped alone),
+   then each launch's time on the card (profiler), by CUDA events, the
+   wrapper's host time with ``out=`` and the bound; then
    times: MS/s and frames/s over 6 passes (median of 3), host ms per
    ``feed_device`` call, synchronizing calls inside the dispatches (PyTorch's sync debug mode;
    must be none), device operations, kernel launches and busy time per step
@@ -295,15 +308,17 @@ def time_ms(fn, inputs, trials: int = 3, reps: int = 10) -> list[float]:
     return times
 
 
-def host_us(fn, calls: int = 2000) -> float:
-    """Host time per call in us: the least of 3 runs of ``calls`` calls by the
-    host clock, the device drained between runs and not inside them."""
+def host_us(fn, calls: int = 300, runs: int = 10) -> float:
+    """Host time per call in us: the least of ``runs`` runs of ``calls`` calls
+    by the host clock, the device drained between runs and not inside them
+    (runs short enough that the launch queue never fills, many enough that
+    the least is one the host's neighbours left alone)."""
     import torch
 
     for _ in range(50):
         fn()
     best = float("inf")
-    for _ in range(3):
+    for _ in range(runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(calls):
@@ -342,28 +357,40 @@ def traced(body, label: str, what: str) -> tuple[dict, float, float, int]:
 
 def launch_path_table(rr, ri, offs, smi: str) -> None:
     """Where the extract wrapper's host time goes: the input checks and the
-    output allocations alone, then the whole call, whose remainder is the
-    ctypes call with the launch in it.  The other three wrappers share the
-    path."""
+    output allocation alone, then the whole call, whose remainder is the
+    ctypes call with the launch in it, without ``out=`` and with the caller's
+    windows.  The other three wrappers share the path."""
     import torch
 
     from cognitive_radio_network_tpu_torch.ops._launch import input_ptr
-    from cognitive_radio_network_tpu_torch.ops.extract import extract_windows
+    from cognitive_radio_network_tpu_torch.ops.extract import (
+        extract_window_sets,
+        extract_windows,
+        window_buffers,
+    )
 
     dev, k, wlen = rr.device, offs.shape[0], 4864
     offs32 = offs.to(torch.int32)
+    step = (688, 4864, 2080)  # the stream step's sets
+    win = window_buffers(rr, k, (wlen,))[0]
+    wins = window_buffers(rr, k, step)
     rows = [
         ("three input_ptr checks", lambda: [
             input_ptr(rr, "rr", dev), input_ptr(ri, "ri", dev), input_ptr(offs, "offsets", dev)]),
-        ("two rr.new_empty((K, wlen))", lambda: (rr.new_empty((k, wlen)), rr.new_empty((k, wlen)))),
+        ("window_buffers(rr, K, (wlen,)): the one allocation", lambda: window_buffers(rr, k, (wlen,))),
         ("whole wrapper, int64 offsets, wlen=4864", lambda: extract_windows(rr, ri, offs, 4864)),
         ("whole wrapper, int32 offsets, wlen=4864", lambda: extract_windows(rr, ri, offs32, 4864)),
         ("whole wrapper, int64 offsets, wlen=160", lambda: extract_windows(rr, ri, offs, 160)),
+        ("whole wrapper with out=, int64 offsets, wlen=4864",
+         lambda: extract_windows(rr, ri, offs, 4864, out=win)),
+        ("extract_window_sets, wlens 688+4864+2080", lambda: extract_window_sets(rr, ri, offs, step)),
+        ("extract_window_sets with out=, wlens 688+4864+2080",
+         lambda: extract_window_sets(rr, ri, offs, step, out=wins)),
         ("for scale: one small PyTorch operator, rr[:1024] + 1", lambda: rr[:1024] + 1),
     ]
     for label, fn in rows:
         phase("launch-path", f"{label}: {host_us(fn):.3f} us host time per call")
-    phase("launch-path", f"least of 3 runs of 2000 calls each, by the host clock; {smi}")
+    phase("launch-path", f"least of 10 runs of 300 calls each, by the host clock; {smi}")
 
 
 def link_block(dev, rng):
@@ -392,8 +419,14 @@ def link_phases(dev, smi: str) -> dict:
     import numpy as np
     import torch
 
-    from cognitive_radio_network_tpu_torch.ops.extract import extract_windows, extract_windows_plain
+    from cognitive_radio_network_tpu_torch.ops.extract import (
+        extract_window_sets,
+        extract_window_sets_plain,
+        extract_windows,
+        extract_windows_plain,
+    )
     from cognitive_radio_network_tpu_torch.phy import OFDMFrameConfig, OFDMFrameGen, OFDMFrameSync
+    from cognitive_radio_network_tpu_torch.profile_extract import device_us_per_launch, gather_bytes
 
     cfg = OFDMFrameConfig()  # ECR defaults: 32 subcarriers, cp 16, qam4/crc32/h128/none
     gen = OFDMFrameGen(cfg, LINK_PAYLOAD)
@@ -414,24 +447,48 @@ def link_phases(dev, smi: str) -> dict:
         o[:3] = torch.tensor([-7, n - 3, n + 100], device=dev)  # clipped to [0, n - wlen]
         return o
 
+    def residues(k: int, n: int):
+        """Offsets of every residue mod 4, the last few within 4864 of the end."""
+        o = 4 * torch.randint(0, n // 4, (k,), generator=g, device=dev) + torch.arange(k, device=dev) % 4
+        o[-4:] = n - torch.tensor([4864, 3001, 690, 3], device=dev)
+        return o
+
     cases = [
-        (f"N={n_link} K=256 wlen=4864", rr, ri, offsets(256, n_link, 4864), 4864),
-        (f"N={n_link} K=256 wlen=160", rr, ri, offsets(256, n_link, 160), 160),
+        (f"N={n_link} K=256 wlen=4864", rr, ri, offsets(256, n_link, 4864), (4864,)),
+        (f"N={n_link} K=256 wlen=160", rr, ri, offsets(256, n_link, 160), (160,)),
         ("N=100 < wlen=160 K=4", rr[:100], ri[:100],
-         torch.tensor([0, 5, -3, 200], device=dev), 160),
+         torch.tensor([0, 5, -3, 200], device=dev), (160,)),
         (f"N={n_link} K=64 odd wlen=333, odd offsets", rr, ri,
-         offsets(64, n_link, 333, odd=True), 333),
+         offsets(64, n_link, 333, odd=True), (333,)),
+        (f"N={n_link - 1} K=256 wlens 688+4864+2080 in one launch, planes 4 bytes past 16-byte "
+         "alignment (rr[1:]), offsets of every residue mod 4", rr[1:], ri[1:],
+         residues(256, n_link - 1), (688, 4864, 2080)),
+        ("N=3000 K=8 wlens 160+4864 (N < the second's wlen)", rr[:3000], ri[:3000],
+         offsets(8, 3000, 160), (160, 4864)),
+        ("K=0 wlens 688+4864", rr, ri, torch.zeros(0, dtype=torch.int64, device=dev), (688, 4864)),
+        (f"N={n_link} K=16 wlens 0+688", rr, ri, offsets(16, n_link, 688), (0, 688)),
     ]
     max_abs_err = 0.0
-    for label, a, b, o, wlen in cases:
-        got = extract_windows(a, b, o, wlen)
-        want = extract_windows_plain(a, b, o, wlen)
+    for label, a, b, o, wlens in cases:
+        before = extract_windows.launches
+        got = extract_window_sets(a, b, o, wlens)
+        launched = extract_windows.launches - before
+        want = extract_window_sets_plain(a, b, o, wlens)
+        into = extract_window_sets(a, b, o, wlens, out=[tuple(torch.empty_like(x) for x in p)
+                                                         for p in want])
         torch.cuda.synchronize()
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            raise AssertionError(f"extract kernel differs from the plain version at {label}")
-        err = max((got[i] - want[i]).abs().max().item() for i in (0, 1))
+        if launched != (1 if o.numel() and any(wlens) else 0):
+            raise AssertionError(f"extract_window_sets launched {launched} times at {label}")
+        err = 0.0
+        for (gr, gi), (wr, wi), (ir, ii) in zip(got, want, into):
+            if not (torch.equal(gr, wr) and torch.equal(gi, wi) and torch.equal(ir, wr)
+                    and torch.equal(ii, wi)):
+                raise AssertionError(f"extract kernel differs from the plain version at {label}")
+            if gr.numel():
+                err = max(err, (gr - wr).abs().max().item(), (gi - wi).abs().max().item())
         max_abs_err = max(max_abs_err, err)
-        phase("extract-vs-plain", f"{label}: torch.equal on both planes (max abs err {err:.1e})")
+        phase("extract-vs-plain", f"{label}: torch.equal on both planes of every set, into its "
+              f"own windows and the caller's (out=), {launched} launch (max abs err {err:.1e})")
 
     # 8. the OFDM link at full size (port of tests/tpu_gates.py::gate_ofdm_decode)
     rng = np.random.default_rng(0)
@@ -518,28 +575,38 @@ def link_phases(dev, smi: str) -> dict:
     # 9. the wrapper's host time, step by step, then times: in turns plain,
     # kernel, kernel, plain
     launch_path_table(rr, ri, offsets(256, n_link, 4864), smi)
+    # the link's frame gather: K=256 frame windows at the block's frame starts
+    # (phase 8's offsets), then random offsets at both link shapes
     times = {}
-    for wlen in (4864, 160):
-        inputs = [(rr, ri, offsets(256, n_link, wlen), wlen)]
+    link_offs = torch.arange(LINK_FRAMES, device=dev) * (flen + LINK_GAP)
+    for label, o, wlen in (("frame windows at the link's frame starts", link_offs, flen),
+                           ("random offsets", offsets(256, n_link, 4864), 4864),
+                           ("random offsets", offsets(256, n_link, 160), 160)):
+        inputs = [(rr, ri, o, wlen)]
         plain_1 = time_ms(extract_windows_plain, inputs)
         kern_1 = time_ms(extract_windows, inputs)
         kern_2 = time_ms(extract_windows, inputs)
         plain_2 = time_ms(extract_windows_plain, inputs)
         k_ms, p_ms = statistics.median(kern_1), statistics.median(plain_1)
-        times[wlen] = (k_ms, p_ms)
-        moved = 2 * 2 * 256 * wlen * 4  # both planes, read and written
-        gbs = moved / (k_ms * 1e-3) / 1e9
-        phase("time", f"extract K=256 wlen={wlen} on N={n_link}: kernel {k_ms:.4f} ms "
-              f"({gbs:.0f} GB/s moved, {gbs / 3350:.1%} of 3.35 TB/s), plain {p_ms:.4f} ms, "
-              f"median of 3; second turn kernel {statistics.median(kern_2):.4f}, plain "
-              f"{statistics.median(plain_2):.4f}; {smi}")
+        win = extract_windows_plain(rr, ri, o, wlen)
+        dev_us, _ = device_us_per_launch(lambda: extract_windows(rr, ri, o, wlen, out=win))
+        nbytes = gather_bytes(o, n_link, (wlen,))
+        b_ms, b_by = bound(nbytes, 0)
+        gbs = nbytes / (dev_us * 1e-6) / 1e9
+        times[label, wlen] = (k_ms, p_ms, dev_us / 1e3, b_ms, b_by)
+        phase("time", f"extract K=256 wlen={wlen} on N={n_link}, {label}: on the card {dev_us:.2f} "
+              f"us per launch (profiler: {gbs:.0f} GB/s moved, {gbs / 3350:.1%} of 3.35 TB/s, "
+              f"{dev_us / 1e3 / b_ms:.2f}x the bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e6:.1f} MB, "
+              f"each output byte written and each distinct input sample read once); per call by "
+              f"CUDA events: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, median of 3; second turn "
+              f"kernel {statistics.median(kern_2):.4f}, plain {statistics.median(plain_2):.4f}; "
+              f"{smi}")
     link_t = time_ms(rxfn, [(lr, li, nvalid)], reps=5)
     link_ms = statistics.median(link_t)
     phase("time", f"OFDM link rx_block_fn(k={LINK_FRAMES}) at N={n_link}: {link_ms:.4f} ms/call "
           f"({n_link / link_ms / 1e3:.1f} MS/s, {LINK_FRAMES / link_ms * 1e3:.0f} frames/s), "
           f"median of 3 runs of 5 calls (runs {', '.join(f'{t:.4f}' for t in link_t)}); {smi}")
-    # a gather: the K windows read and written once, both planes, and the offsets
-    bound_ms, bound_by = bound(2 * 2 * 256 * 4864 * 4 + 256 * 8, 0)
+    k_ms, p_ms, dev_ms, bound_ms, bound_by = times["frame windows at the link's frame starts", flen]
     return {
         "name": "extract_windows",
         "route": "cuda",
@@ -547,8 +614,10 @@ def link_phases(dev, smi: str) -> dict:
         "replaces": EXTRACT_REPLACES,
         "launches": launches,
         "max_abs_err": max_abs_err,
-        "ms": times[4864][0],
-        "plain_ms": times[4864][1],
+        "shape": f"N={n_link} K={LINK_FRAMES} wlen={flen}, the link's frame gather",
+        "ms": k_ms,
+        "device_ms": dev_ms,  # the profiler's kernel time per launch
+        "plain_ms": p_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call gathers clipped windows of two planes
@@ -598,6 +667,7 @@ def wideband_and_dense_phases(dev, smi: str, sense_planar, pu_trace, params) -> 
         wideband_energy_fused_plain,
     )
     from cognitive_radio_network_tpu_torch.parallel import WidebandConfig, make_wideband_fn
+    from cognitive_radio_network_tpu_torch.profile_extract import device_us_per_launch
     from cognitive_radio_network_tpu_torch.signal.detector import occupancy_decision
     from cognitive_radio_network_tpu_torch.signal.mlp import OccupancyMLP
 
@@ -801,16 +871,32 @@ def wideband_and_dense_phases(dev, smi: str, sense_planar, pu_trace, params) -> 
 
     wk, wp, wk2, wp2 = turns(wide_kern, wide_plain, [big])
     read = 2 * n_wide * 4
+
+    def wide_bound_of(t: int) -> tuple[float, str]:
+        # per row: the FIR (2 planes x 64 channels x 8 taps x 2), a 64-point
+        # complex FFT (5 N log2 N) and the power (3 x 64)
+        return bound(2 * t * m * 4 + taps.numel() * 4 + t // bl * m * 4,
+                     t * (2 * m * 8 * 2 + 5 * m * 6 + 3 * m))
+
     gbs = read / (wk * 1e-3) / 1e9
-    # per row: the FIR (2 planes x 64 channels x 8 taps x 2), a 64-point
-    # complex FFT (5 N log2 N) and the power (3 x 64)
-    wide_bound, wide_by = bound(read + taps.numel() * 4 + cycles * m * 4,
-                                WIDE_T * (2 * m * 8 * 2 + 5 * m * 6 + 3 * m))
+    wide_bound, wide_by = wide_bound_of(WIDE_T)
     phase("time", f"wideband T={WIDE_T} ({n_wide / 1e6:.1f} M wide samples): kernel {wk:.4f} "
           f"ms/dispatch ({n_wide / wk / 1e3:.0f} MS/s, {gbs:.0f} GB/s read, "
           f"{gbs / 3350:.1%} of 3.35 TB/s; bound {wide_bound:.4f} ms by {wide_by}), plain "
           f"{wp:.4f} ms/dispatch ({n_wide / wp / 1e3:.0f} MS/s), median of 3; second turn kernel "
           f"{wk2:.4f}, plain {wp2:.4f}; {smi}")
+    # the kernel alone at the segments a rank of a 4- or 2-way time split gets,
+    # with no other process on the card
+    for t in (WIDE_T // 4, WIDE_T // 2, WIDE_T):
+        seg = big if t == WIDE_T else (big[0][: t * m], big[1][: t * m])
+        ev = time_ms(wide_kern, [seg])
+        dev_us, _ = device_us_per_launch(lambda: wide_kern(*seg), name="fused_wideband")
+        t_bound, t_by = wide_bound_of(t)
+        phase("time", f"wideband kernel alone at T={t}: on the card {dev_us / 1e3:.4f} ms per "
+              f"launch (profiler), {dev_us / 1e3 / t_bound:.2f}x its bound {t_bound:.4f} ms by "
+              f"{t_by} ({t_bound / (dev_us / 1e3):.0%} of it); by CUDA events "
+              f"{statistics.median(ev):.4f} ms per call (runs {', '.join(f'{x:.4f}' for x in ev)}); "
+              f"{smi}")
     sense_t = time_ms(fn, [(big,)])
     sense_ms = statistics.median(sense_t)
     phase("time", f"make_wideband_fn T={WIDE_T}: {sense_ms:.4f} ms/call "
@@ -938,11 +1024,17 @@ def stream_phases(dev, smi: str) -> tuple[dict, dict]:
     import numpy as np
     import torch
 
-    from cognitive_radio_network_tpu_torch.ops.extract import extract_windows, extract_windows_plain
+    from cognitive_radio_network_tpu_torch.ops.extract import (
+        extract_window_sets,
+        extract_window_sets_plain,
+        extract_windows,
+        window_buffers,
+    )
     from cognitive_radio_network_tpu_torch.ops.resolve import (
         resolve_candidates,
         resolve_candidates_plain,
     )
+    from cognitive_radio_network_tpu_torch.profile_extract import device_us_per_launch, gather_bytes
     from cognitive_radio_network_tpu_torch.phy import (
         OFDMFrameConfig,
         OFDMFrameGen,
@@ -1030,7 +1122,7 @@ def stream_phases(dev, smi: str) -> tuple[dict, dict]:
         frames += rx.process_device(*planes(stream[s0 : s0 + 2048]))
         steps += 1
     check_frames(frames, placed, "adaptive gate")
-    if resolve_candidates.launches != steps or extract_windows.launches < 3 * steps:
+    if resolve_candidates.launches != steps or extract_windows.launches < 2 * steps:
         raise AssertionError(
             f"adaptive gate: {resolve_candidates.launches} resolve and "
             f"{extract_windows.launches} extract launches in {steps} steps")
@@ -1142,11 +1234,12 @@ def stream_phases(dev, smi: str) -> tuple[dict, dict]:
     check_pass(frames0, 3 * n_ad)
     resolve_launches = resolve_candidates.launches
     extract_launches = extract_windows.launches
-    # a step with two speculated configs and no fallback: 2 in the scan, 1 per config
-    if resolve_launches != STREAM_BLOCKS or extract_launches != 4 * STREAM_BLOCKS:
+    # a step with two speculated configs and no fallback: the refinement
+    # windows, then the header and both configs' frame windows in one launch
+    if resolve_launches != STREAM_BLOCKS or extract_launches != 2 * STREAM_BLOCKS:
         raise AssertionError(f"a pass of {STREAM_BLOCKS} steps launched resolve "
                              f"{resolve_launches} and extract {extract_launches} times, not "
-                             f"{STREAM_BLOCKS} and {4 * STREAM_BLOCKS}")
+                             f"{STREAM_BLOCKS} and {2 * STREAM_BLOCKS}")
     phase("adaptive-stream", f"{STREAM_FRAMES} frames x {STREAM_PAYLOAD} B alternating qam4/h128 "
           f"({gen_a.frame_len} samples) and qam16/none ({gen_b.frame_len}), gap {STREAM_GAP}: N "
           f"{n_ad} in {STREAM_BLOCKS} blocks of {a_blk}, built on the card in {build_s:.2f} s; "
@@ -1156,8 +1249,8 @@ def stream_phases(dev, smi: str) -> tuple[dict, dict]:
           f"headers and payloads equal to those sent, mods alternate, all CRCs good, offsets "
           f"within 2 samples; first three passes {', '.join(f'{t:.3f}' for t in first_s)} s; per "
           f"pass of {STREAM_BLOCKS} steps: resolve launches {resolve_launches}, extract launches "
-          f"{extract_launches} ({extract_launches / STREAM_BLOCKS:g} per step: 2 in the scan, 1 "
-          f"per speculated config)")
+          f"{extract_launches} ({extract_launches / STREAM_BLOCKS:g} per step: the refinement "
+          f"windows, then the header windows and both speculated configs' frame windows in one)")
 
     # 14b. the resolve kernel on the stream's own columns: one step's scan
     from cognitive_radio_network_tpu_torch.phy import framesync, stream as stream_mod
@@ -1196,38 +1289,80 @@ def stream_phases(dev, smi: str) -> tuple[dict, dict]:
     del cols, args
 
     # 7b. extract, kernel vs plain on the stream step's own windows: the step's
-    # buffer and its K candidates, at each window length a step asks for
+    # buffer and its K candidates, the step's two launches (the refinement
+    # windows; the header and both configs' frame windows in one launch), and
+    # candidates within 4864 of the buffer's end, where each set clips alone
     span = cfg_a.cp_len + cfg_a.num_subcarriers  # the refinement's reach (framesync._refine)
     ref_wlen = 2 * span + 2 * cfg_a.num_subcarriers
+    fused = (srx.prefix_len, gen_a.frame_len, gen_b.frame_len)
+    near_end = bests.clone()
+    near_end[:8] = n_buf - torch.tensor([4864, 4000, 3000, 2081, 2080, 1000, 689, 1], device=dev)
     step_cases = [
-        (f"frame windows of {gen_a.cfg.mod_scheme}/{gen_a.cfg.fec0}", bests, gen_a.frame_len),
-        (f"frame windows of {gen_b.cfg.mod_scheme}/{gen_b.cfg.fec0}", bests, gen_b.frame_len),
-        ("the scan's header windows", bests, srx.prefix_len),
-        ("the scan's refinement windows", (bests - span).clamp(0, n_buf - ref_wlen), ref_wlen),
+        ("the step's header and frame windows, one launch", bests, fused),
+        ("the scan's refinement windows", (bests - span).clamp(0, n_buf - ref_wlen), (ref_wlen,)),
+        ("candidates within 4864 of the buffer's end, one launch", near_end, fused),
     ]
-    extract_err, step_times = 0.0, {}
-    for label, offs, wlen in step_cases:
-        got = extract_windows(*buf, offs, wlen)
-        want = extract_windows_plain(*buf, offs, wlen)
+    extract_err = 0.0
+    for label, offs, wlens in step_cases:
+        got = extract_window_sets(*buf, offs, wlens)
+        want = extract_window_sets_plain(*buf, offs, wlens)
+        into = extract_window_sets(*buf, offs, wlens, out=window_buffers(buf[0], len(offs), wlens))
         torch.cuda.synchronize()
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            raise AssertionError(f"extract kernel differs from the plain version at {label}")
-        err = max((got[i] - want[i]).abs().max().item() for i in (0, 1))
-        extract_err = max(extract_err, err)
-        del got, want
-        inputs = [(*buf, offs, wlen)]
-        plain_1 = time_ms(extract_windows_plain, inputs)
-        kern_1 = time_ms(extract_windows, inputs)
-        kern_2 = time_ms(extract_windows, inputs)
-        plain_2 = time_ms(extract_windows_plain, inputs)
+        for (gr, gi), (wr, wi), (ir, ii) in zip(got, want, into):
+            if not (torch.equal(gr, wr) and torch.equal(gi, wi) and torch.equal(ir, wr)
+                    and torch.equal(ii, wi)):
+                raise AssertionError(f"extract kernel differs from the plain version at {label}")
+            extract_err = max(extract_err, (gr - wr).abs().max().item(), (gi - wi).abs().max().item())
+        # near the end the header window is not a prefix of the frame window
+        clipped = sum(not torch.equal(got[0][0][i], got[1][0][i, : wlens[0]]) for i in range(8)) \
+            if offs is near_end else 0
+        if offs is near_end and clipped == 0:
+            raise AssertionError("no candidate near the end clipped its sets apart")
+        phase("extract-vs-plain", f"stream step, N={n_buf} K={k_step} wlens "
+              f"{'+'.join(map(str, wlens))} ({label}): torch.equal on both planes of every set, "
+              f"into its own windows and the caller's (out=)"
+              + (f"; {clipped} of 8 candidates near the end clip the header and frame windows "
+                 "to different starts" if offs is near_end else ""))
+        del got, want, into
+
+    def step_times(offs, wlens, label):
+        """On-card time per launch, CUDA events per call (plain and kernel in
+        turns), the wrapper's host time with out=, and the bound."""
+        ws = window_buffers(buf[0], len(offs), wlens)
+
+        def kern(*a):
+            return extract_window_sets(*a, out=ws)
+
+        inputs = [(*buf, offs, wlens)]
+        plain_1 = time_ms(extract_window_sets_plain, inputs)
+        kern_1 = time_ms(kern, inputs)
+        kern_2 = time_ms(kern, inputs)
+        plain_2 = time_ms(extract_window_sets_plain, inputs)
         k_ms, p_ms = statistics.median(kern_1), statistics.median(plain_1)
-        # a gather: the K windows read and written once, both planes, and the offsets
-        b_ms, b_by = bound(2 * 2 * k_step * wlen * 4 + k_step * 8, 0)
-        step_times[wlen] = (k_ms, p_ms, b_ms, b_by)
-        phase("extract-vs-plain", f"stream step, N={n_buf} K={k_step} wlen={wlen} ({label}): "
-              f"torch.equal on both planes (max abs err {err:.1e}); kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, median of 3; second turn kernel "
-              f"{statistics.median(kern_2):.4f}, plain {statistics.median(plain_2):.4f}; {smi}")
+        dev_us, _ = device_us_per_launch(lambda: kern(*buf, offs, wlens))
+        host = host_us(lambda: kern(*buf, offs, wlens))
+        nbytes = gather_bytes(offs, n_buf, wlens)
+        b_ms, b_by = bound(nbytes, 0)
+        gbs = nbytes / (dev_us * 1e-6) / 1e9
+        phase("time", f"extract, stream step N={n_buf} K={k_step} wlens {'+'.join(map(str, wlens))} "
+              f"({label}): on the card {dev_us:.2f} us per launch (profiler: {gbs:.0f} GB/s, "
+              f"{gbs / 3350:.1%} of 3.35 TB/s, {dev_us / 1e3 / b_ms:.2f}x the bound {b_ms:.4f} ms "
+              f"by {b_by}: {nbytes / 1e6:.1f} MB, each output byte written and each distinct input "
+              f"sample read once); per call by CUDA events: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, median of 3; second turn kernel {statistics.median(kern_2):.4f}, "
+              f"plain {statistics.median(plain_2):.4f}; the wrapper's host time with out= "
+              f"{host:.3f} us per call; {smi}")
+        return k_ms, p_ms, dev_us / 1e3, b_ms, host
+
+    fused_t = step_times(bests, fused, "the header and frame windows, one launch")
+    ref_t = step_times(step_cases[1][1], (ref_wlen,), "the refinement windows")
+    # the design this replaced, for scale: one launch per set on the same kernel
+    per_set_us = sum(device_us_per_launch(lambda w=w: extract_windows(*buf, bests, w))[0]
+                     for w in fused)
+    phase("time", f"extract, stream step: the step's two launches take {fused_t[2] + ref_t[2]:.4f} "
+          f"ms on the card and {fused_t[0] + ref_t[0]:.4f} ms per step by CUDA events; the three "
+          f"sets as three launches of the same kernel {per_set_us / 1e3:.4f} ms on the card "
+          f"against {fused_t[2]:.4f} in one; {smi}")
     del buf
 
     # times: 6 passes per trial, median of 3 trials, PyTorch's sync debug mode on
@@ -1305,14 +1440,15 @@ def stream_phases(dev, smi: str) -> tuple[dict, dict]:
         "bound_by": r_by,
         "library_ms": None,  # a sequential greedy walk: no PyTorch call computes it
     }
-    wide = step_times[gen_a.frame_len]
     stream_extract = {
         "launches_per_stream_step": extract_launches / STREAM_BLOCKS,
         "stream_step_max_abs_err": extract_err,
-        "stream_step_shape": f"N={n_buf} K={k_step} wlen={gen_a.frame_len}",
-        "stream_step_ms": wide[0],
-        "stream_step_plain_ms": wide[1],
-        "stream_step_bound_ms": wide[2],
+        "stream_step_shape": f"N={n_buf} K={k_step} wlens {'+'.join(map(str, fused))}, one launch",
+        "stream_step_ms": fused_t[0],
+        "stream_step_device_ms": fused_t[2],
+        "stream_step_plain_ms": fused_t[1],
+        "stream_step_bound_ms": fused_t[3],
+        "stream_step_host_us_with_out": fused_t[4],
     }
     return entry, stream_extract
 

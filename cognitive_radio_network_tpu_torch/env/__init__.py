@@ -1,8 +1,12 @@
-"""Synthetic RF environment: PU hopping processes, channel impairments and
-scene composition.  The interferer waveforms (``env.interference``) are
-imported by their module path."""
+"""Synthetic RF environment: PU hopping processes, channel impairments,
+interferer waveforms (``InterfererConfig``, ``synthesize_interference``) and
+scene composition."""
 
 from cognitive_radio_network_tpu_torch.env.channel import awgn, mix_to_offset
+from cognitive_radio_network_tpu_torch.env.interference import (
+    InterfererConfig,
+    synthesize_interference,
+)
 from cognitive_radio_network_tpu_torch.env.pu import (
     MARKOV_MATRIX_AS_IMPLEMENTED,
     MARKOV_MATRIX_DOCUMENTED,
@@ -22,6 +26,8 @@ __all__ = [
     "PU_CHANNELS_HZ",
     "markov_pu_trace",
     "random_pu_trace",
+    "InterfererConfig",
+    "synthesize_interference",
     "awgn",
     "mix_to_offset",
     "SceneConfig",

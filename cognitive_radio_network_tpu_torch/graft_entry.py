@@ -10,12 +10,15 @@ dryrun_multichip(n)  -> n ranks (:func:`..parallel.launch.run_ranks`) on a mesh
                         channel): one sharded wideband train step, the
                         sharded fixed-config receiver on frames straddling
                         the shard seams, and the sharded streaming receiver
-                        fed a stream cut mid-frame, at tiny shapes.
+                        fed a stream cut mid-frame, at tiny shapes; then the
+                        wideband detector at ``WidebandConfig()`` (M=64, P=8,
+                        the widths the fused kernel takes) over the mesh.
 
 Unlike the reference, which checks that each stage runs, the dry run holds
 each stage to its one-device counterpart: the sharded loss within rtol 1e-5
-of the one-device step's from the same parameters, and the frames equal byte
-for byte (offsets, headers, payloads, CRC flags).
+of the one-device step's from the same parameters, the frames equal byte
+for byte (offsets, headers, payloads, CRC flags), and each rank's block of
+the M=64 energy within rtol 1e-5 of one device's.
 """
 
 from __future__ import annotations
@@ -78,8 +81,8 @@ def _dryrun_rank(n_devices: int, device: str) -> dict:
 
     from cognitive_radio_network_tpu_torch.models.distributed import make_sharded_train_step
     from cognitive_radio_network_tpu_torch.models.train import TrainConfig, TrainState, make_optimizer
-    from cognitive_radio_network_tpu_torch.parallel import WidebandConfig, make_mesh
-    from cognitive_radio_network_tpu_torch.parallel.mesh import axis_size
+    from cognitive_radio_network_tpu_torch.parallel import WidebandConfig, make_mesh, make_wideband_fn
+    from cognitive_radio_network_tpu_torch.parallel.mesh import axis_size, block_range
     from cognitive_radio_network_tpu_torch.parallel.phylink import (
         ShardedFrameReceiver,
         ShardedStreamReceiver,
@@ -151,6 +154,20 @@ def _dryrun_rank(n_devices: int, device: str) -> dict:
         raise AssertionError(f"streaming receiver: {len(sframes)} of {len(offs)} frames")
     if sframes != one_sframes:
         raise AssertionError("the sharded streaming receiver's frames differ from one device's")
+
+    # the wideband detector at WidebandConfig() (M=64, P=8: the fused path),
+    # two cycles per time shard, each rank's (time, channel) block held to
+    # one device's
+    wcfg = WidebandConfig()
+    cycles = 2 * d_time
+    wide = np.random.default_rng(1).standard_normal(
+        (2, cycles * wcfg.block_len * wcfg.num_channels), dtype=np.float32)
+    planes_w = tuple(torch.from_numpy(p).to(dev) for p in wide)
+    got_e = make_wideband_fn(wcfg, mesh=mesh, device=dev)(planes_w)["energy"]
+    whole_e = make_wideband_fn(wcfg, device=dev)(planes_w)["energy"]
+    lo, hi = block_range(cycles, mesh, "time")
+    c_lo, c_hi = block_range(wcfg.num_channels, mesh, "channel")
+    torch.testing.assert_close(got_e, whole_e[lo:hi, c_lo:c_hi], rtol=1e-5, atol=1e-7)
     return {
         "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
         "loss": loss_val,
@@ -159,6 +176,7 @@ def _dryrun_rank(n_devices: int, device: str) -> dict:
         "phylink_frames": len(frames),
         "adaptive_frames": len(sframes),
         "placed": len(offs),
+        "wideband_cycles": hi - lo,
     }
 
 

@@ -5,6 +5,7 @@ Each replaces one Pallas TPU kernel of ``cognitive_radio_network_tpu/ops``
 
 ``fused_sense_ct``         ``fused_sense_ct.py``  -> ``csrc/fused_sense_ct.cu``
 ``extract_windows``        ``extract.py``         -> ``csrc/extract_windows.cu``
+``extract_window_sets``    (the same kernel: up to four window sets a launch)
 ``wideband_energy_fused``  ``fused_wideband.py``  -> ``csrc/fused_wideband.cu``
 ``fused_band_features``    ``fused_sense.py``     -> ``csrc/fused_sense.cu``
 
@@ -15,7 +16,12 @@ reference runs as a ``lax.scan`` inside its step graph.  Kernels build at
 first launch, never at import.
 """
 
-from cognitive_radio_network_tpu_torch.ops.extract import extract_windows, extract_windows_plain
+from cognitive_radio_network_tpu_torch.ops.extract import (
+    extract_window_sets,
+    extract_window_sets_plain,
+    extract_windows,
+    extract_windows_plain,
+)
 from cognitive_radio_network_tpu_torch.ops.fused_sense import (
     fused_band_features,
     fused_band_features_plain,
@@ -34,6 +40,8 @@ from cognitive_radio_network_tpu_torch.ops.resolve import (
 )
 
 __all__ = [
+    "extract_window_sets",
+    "extract_window_sets_plain",
     "extract_windows",
     "extract_windows_plain",
     "fused_band_features",

@@ -47,7 +47,9 @@ def launch(name: str, device: torch.device, *args) -> None:
     current stream of ``device``, without synchronizing.  Raises RuntimeError
     with the CUDA error code when the launch is refused."""
     fn = _entry(name)
-    current = torch.cuda.current_device()
+    # the device query without current_device()'s lazy-init check: the
+    # wrappers launch only for CUDA tensors, so CUDA is initialized
+    current = torch._C._cuda_getDevice()
     index = current if device.index is None else device.index
     if index == current:
         err = fn(*args, torch._C._cuda_getCurrentRawStream(index))

@@ -8,6 +8,8 @@ computes the sensing math of CE_Predictive_Node.cpp:146-197:
     512-point FFT of each row -> |X| -> mean over the A rows -> band
     amplitude sums through the (512, 4) indicator matrix -> squared
 
+:func:`ct_band_features` returns the features alone.
+
 :func:`fused_sense_ct` launches the kernel for CUDA tensors and runs
 :func:`fused_sense_ct_plain`, the plain PyTorch version of the same contract
 (radix-4 -> twiddle -> 128-point DFT matmul -> |X| -> mean -> band matmul ->
@@ -30,7 +32,7 @@ from cognitive_radio_network_tpu_torch.signal import bands as bands_mod
 from cognitive_radio_network_tpu_torch.signal.fft import PRECISIONS, spectrum_magnitude
 from cognitive_radio_network_tpu_torch.utils.device import on_cuda
 
-__all__ = ["fused_sense_ct", "fused_sense_ct_plain"]
+__all__ = ["ct_band_features", "fused_sense_ct", "fused_sense_ct_plain"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -102,3 +104,18 @@ def fused_sense_ct(
 
 
 fused_sense_ct.launches = 0
+
+
+def ct_band_features(iq_planes, **kw) -> torch.Tensor:
+    """Features only: (C, 4) float32, a drop-in for
+    :func:`..fused_sense.fused_band_features`.  ``iq_planes`` is a planar
+    ``(xr, xi)`` tuple as :func:`fused_sense_ct` takes it, or (C, A, N, 2)
+    planes (A from the shape, de-interleaved with one copy per plane);
+    ``kw`` goes to :func:`fused_sense_ct`."""
+    if isinstance(iq_planes, (tuple, list)):
+        xr, xi = iq_planes
+    else:
+        if iq_planes.dim() != 4 or iq_planes.shape[-1] != 2:
+            raise ValueError(f"expected (C, A, N, 2) planes, got {tuple(iq_planes.shape)}")
+        xr, xi = iq_planes[..., 0].contiguous(), iq_planes[..., 1].contiguous()
+    return fused_sense_ct(xr, xi, **kw)[1]

@@ -21,6 +21,8 @@ block-oriented and batched instead:
 
 Window gathers (refinement windows, frame windows, header windows) go
 through :func:`..ops.extract.extract_windows`, the CUDA kernel on the card.
+The function :meth:`OFDMFrameSync.rx_block_fn` returns owns the buffers of
+its two gathers (:func:`_window_buffers`) and reuses them call after call.
 Everything runs on the device of the input tensors; inputs that arrive on
 the host (numpy, CPU tensors) go to the synchronizer's ``device``.
 """
@@ -33,7 +35,7 @@ import functools
 import numpy as np
 import torch
 
-from cognitive_radio_network_tpu_torch.ops.extract import extract_windows
+from cognitive_radio_network_tpu_torch.ops.extract import extract_windows, window_buffers
 from cognitive_radio_network_tpu_torch.phy import crc as crc_mod
 from cognitive_radio_network_tpu_torch.phy import fec as fec_mod
 from cognitive_radio_network_tpu_torch.phy import modem
@@ -151,8 +153,14 @@ class OFDMFrameSync:
         (rr, ri, n_valid) -> (bests, peaks, cfos, rx dict, ok), all tensors
         on the planes' device, nothing fetched to the host, so calls
         queue back to back on the card.  ``n_valid`` is an int or a 0-d
-        integer tensor."""
-        return functools.partial(_receive_block_graph, self.gen, k=k)
+        integer tensor.
+
+        The function owns the windows of its two gathers, the refinement
+        windows (k, 2 (cp + m) + 2 m) and the frame windows (k, frame_len),
+        made at its first call on a device and rewritten by each later call:
+        calls run in order on one stream, and nothing a call returns is a view
+        of them."""
+        return functools.partial(_receive_block_graph, self.gen, k=k, ws={})
 
     def receive_block(self, iq, threshold: float = 0.2, k: int = 16):
         """Host convenience over :meth:`rx_block_fn`: returns the frames
@@ -225,6 +233,27 @@ def _n_valid(n_valid, device: torch.device) -> torch.Tensor:
     return torch.full((), int(n_valid), dtype=torch.int64, device=device)
 
 
+def _window_buffers(ws: dict | None, like: torch.Tensor, k: int, wlens: tuple[int, ...]):
+    """The caller-owned window buffers kept in ``ws``: one (wr, wi) pair of
+    (k, wlen) per length on ``like``'s device, from one allocation, made at
+    the first call with this key and kept until a call asks for another (the
+    older buffers go).  None without ``ws``: the gathers then allocate their
+    windows."""
+    if ws is None:
+        return None
+    key = (like.device, k, wlens)
+    bufs = ws.get(key)
+    if bufs is None:
+        ws.clear()
+        bufs = ws[key] = window_buffers(like, k, wlens)
+    return bufs
+
+
+def _rows(pair, k: int):
+    """The first ``k`` rows of a window buffer pair (contiguous views), or None."""
+    return None if pair is None else (pair[0][:k], pair[1][:k])
+
+
 def _bucket_len(n: int, floor: int = 1) -> int:
     """The reference's shape bucket: the next multiple of an eighth of the
     enclosing power of two.  Nothing is compiled per shape here; the bucket is
@@ -285,22 +314,29 @@ def _sc_metric(r: torch.Tensor, n_valid: torch.Tensor, m: int):
     return metric, p, half
 
 
-def _refine(rr, ri, metric, p, half, coarses, tmpl, m, cp=None):
+def _refine_len(m: int, cp: int | None, tlen: int) -> int:
+    """Length of a refinement window: the template slid over 2 (cp + m) + 1
+    positions (cp defaults to m)."""
+    return 2 * ((cp if cp is not None else m) + m) + tlen
+
+
+def _refine(rr, ri, metric, p, half, coarses, tmpl, m, cp=None, ws=None):
     """CFO-corrected matched-filter timing refinement, vectorized over K
     coarse candidates.  The S&C metric plateaus (|P| and R shrink together
     during partial overlap), so snap to the known 2x-S0 template.  The
-    candidates' windows come from one :func:`extract_windows` call."""
+    candidates' windows come from one :func:`extract_windows` call, into the
+    first K rows of ``ws`` (a caller-owned pair of :func:`_refine_len` columns)
+    when given."""
     tlen = tmpl.shape[0]
     # the box-smoothed S&C plateau maximum sits within ~cp + half of the
     # true start, so cp + m covers it with >= m/2 slack for any cp
     span = (cp if cp is not None else m) + m
-    s_count = 2 * span + 1
-    wlen = s_count - 1 + tlen
+    wlen = _refine_len(m, cp, tlen)
     cfo0 = torch.angle(p[coarses.clamp(0, p.shape[0] - 1)]) / half  # (K,)
     n = torch.arange(tlen, dtype=torch.float32, device=rr.device)
     rot = _cis(-cfo0[:, None] * n)
     base = (coarses - span).clamp(0, max(rr.shape[0] - wlen, 0))
-    wr, wi = extract_windows(rr, ri, base, wlen)  # (K, wlen) each
+    wr, wi = extract_windows(rr, ri, base, wlen, out=_rows(ws, base.shape[0]))  # (K, wlen) each
     wins = torch.complex(wr, wi).unfold(1, tlen, 1)  # (K, S, tlen)
     q = rot * torch.conj(tmpl)[None, :]
     xc = (wins * q[:, None, :]).sum(dim=-1).abs() ** 2
@@ -322,7 +358,7 @@ def _detect_core(rr, ri, n_valid, tmpl, m: int):
     return peak[0], best[0], cfo[0]
 
 
-def _topk_core(rr, ri, metric, p, half, tmpl, m, k: int, cp=None):
+def _topk_core(rr, ri, metric, p, half, tmpl, m, k: int, cp=None, ws=None):
     """Top-K candidate detection, fully parallel: windowed local maxima
     (window 2m, which suppresses one frame's metric plateau — distinct
     frames are >= prefix_len >> 2m apart) -> non-max suppression against
@@ -330,7 +366,8 @@ def _topk_core(rr, ri, metric, p, half, tmpl, m, k: int, cp=None):
     Returns (bests (K',), peaks (K',), cfos (K',)) with K' = min(K, #windows).
 
     The top K is a stable descending sort, so equal values keep index
-    order, as ``lax.top_k`` orders them."""
+    order, as ``lax.top_k`` orders them.  ``ws``: the refinement's window
+    buffers (:func:`_refine`)."""
     w = 2 * m
     nwin = -(-metric.shape[0] // w)
     mm = torch.nn.functional.pad(metric, (0, nwin * w - metric.shape[0]), value=-1.0)
@@ -344,7 +381,7 @@ def _topk_core(rr, ri, metric, p, half, tmpl, m, k: int, cp=None):
     keff = min(k, nwin)
     topi = torch.sort(vals, descending=True, stable=True).indices[:keff]
     coarses = warg[topi]
-    return _refine(rr, ri, metric, p, half, coarses, tmpl, m, cp=cp)
+    return _refine(rr, ri, metric, p, half, coarses, tmpl, m, cp=cp, ws=ws)
 
 
 def _detect(gen: OFDMFrameGen, re: torch.Tensor, im: torch.Tensor):
@@ -495,30 +532,64 @@ def _rx_graph(gen: OFDMFrameGen, re, im, cfo):
     }
 
 
-def _rx_at_graph(gen: OFDMFrameGen, rr, ri, offsets, cfos):
+def _rx_at_graph(gen: OFDMFrameGen, rr, ri, offsets, cfos, out=None):
     """Gather frames at dynamic offsets from a block, then fused receive.
 
-    rr/ri: (N,) planes; offsets (G,) int; cfos (G,) float32."""
-    fre, fim = extract_windows(rr, ri, offsets, gen.frame_len)
+    rr/ri: (N,) planes; offsets (G,) int; cfos (G,) float32; ``out``: a
+    caller-owned (G, frame_len) pair for the frame windows."""
+    fre, fim = extract_windows(rr, ri, offsets, gen.frame_len, out=out)
     return _rx_graph(gen, fre, fim, cfos)
 
 
-def _receive_block_graph(gen: OFDMFrameGen, rr, ri, n_valid, *, k: int):
+def _receive_block_graph(gen: OFDMFrameGen, rr, ri, n_valid, *, k: int, ws: dict | None = None):
     """Fixed-config block receive: top-K detect + gather + demod + FEC +
     CRC.  Returns (bests, peaks, cfos, rx dict, ok) where ok = header CRC &
-    payload fits inside the valid samples.
+    payload fits inside the valid samples.  ``ws`` keeps the windows of the
+    two gathers from call to call (:func:`_window_buffers`).
 
     The replacement for liquid's per-sample streaming synchronizer at full
     rate (ofdmflexframesync_execute inside ECR_rx_worker,
     src/extensible_cognitive_radio.cpp:1299-1366)."""
-    m = gen.cfg.num_subcarriers
+    m, cp = gen.cfg.num_subcarriers, gen.cfg.cp_len
     nv = _n_valid(n_valid, rr.device)
     metric, p, half = _sc_metric(torch.complex(rr, ri), nv, m)
     tmpl = gen.device_constants(rr.device)["tmpl"]
-    bests, peaks, cfos = _topk_core(rr, ri, metric, p, half, tmpl, m, k, cp=gen.cfg.cp_len)
-    out = _rx_at_graph(gen, rr, ri, bests, cfos)
+    bufs = _window_buffers(ws, rr, k, (_refine_len(m, cp, tmpl.shape[0]), gen.frame_len))
+    ref_ws, frame_ws = (None, None) if bufs is None else bufs
+    bests, peaks, cfos = _topk_core(rr, ri, metric, p, half, tmpl, m, k, cp=cp, ws=ref_ws)
+    out = _rx_at_graph(gen, rr, ri, bests, cfos, out=_rows(frame_ws, bests.shape[0]))
     ok = out["hdr_ok"] & (bests + gen.frame_len <= nv)
     return bests, peaks, cfos, out, ok
+
+
+def _prefix_len(layout: OFDMFrameGen) -> int:
+    """Samples from a frame's start to the end of its header symbols: the
+    block scan's header window."""
+    m, cp = layout.cfg.num_subcarriers, layout.cfg.cp_len
+    return 2 * m + (m + cp) * (1 + layout.n_header_syms)
+
+
+def _scan_candidates(layout: OFDMFrameGen, rr, ri, n_valid, *, k: int, ws=None):
+    """The block scan's detection: top-K S&C candidates, refined.  Returns
+    (bests, peaks, cfos, n_valid as a 0-d tensor); ``ws``: the refinement's
+    window buffers (:func:`_refine`)."""
+    m = layout.cfg.num_subcarriers
+    nv = _n_valid(n_valid, rr.device)
+    metric, p, half = _sc_metric(torch.complex(rr, ri), nv, m)
+    tmpl = layout.device_constants(rr.device)["tmpl"]
+    bests, peaks, cfos = _topk_core(
+        rr, ri, metric, p, half, tmpl, m, k, cp=layout.cfg.cp_len, ws=ws)
+    return bests, peaks, cfos, nv
+
+
+def _scan_headers(layout: OFDMFrameGen, pre_r, pre_i, bests, cfos, nv):
+    """The block scan's header decode from the (K, prefix) header windows at
+    ``bests``: (headers (K,8), phy (K,6), hdr_ok (K,)), hdr_ok False where the
+    header region overruns the valid samples."""
+    hdr_bits, _rssi = _header_demod_graph(layout, pre_r, pre_i, cfos)
+    headers, phy, hdr_ok = _decode_header_graph(hdr_bits)
+    hdr_ok = hdr_ok & (bests + _prefix_len(layout) <= nv)
+    return headers, phy, hdr_ok
 
 
 def _scan_block_graph(layout: OFDMFrameGen, rr, ri, n_valid, *, k: int):
@@ -527,22 +598,11 @@ def _scan_block_graph(layout: OFDMFrameGen, rr, ri, n_valid, *, k: int):
 
     Returns (bests, peaks, cfos, headers (K,8), phy (K,6), hdr_ok (K,))
     with hdr_ok False for candidates whose header region overruns the
-    valid samples."""
-    m = layout.cfg.num_subcarriers
-    nv = _n_valid(n_valid, rr.device)
-    metric, p, half = _sc_metric(torch.complex(rr, ri), nv, m)
-    tmpl = layout.device_constants(rr.device)["tmpl"]
-    bests, peaks, cfos = _topk_core(rr, ri, metric, p, half, tmpl, m, k, cp=layout.cfg.cp_len)
-    pref = (
-        2 * m
-        + (m + layout.cfg.cp_len)
-        + layout.n_header_syms * (m + layout.cfg.cp_len)
-    )
-    pre_r, pre_i = extract_windows(rr, ri, bests, pref)
-    hdr_bits, _rssi = _header_demod_graph(layout, pre_r, pre_i, cfos)
-    headers, phy, hdr_ok = _decode_header_graph(hdr_bits)
-    hdr_ok = hdr_ok & (bests + pref <= nv)
-    return bests, peaks, cfos, headers, phy, hdr_ok
+    valid samples.  The adaptive stream step runs the two halves itself,
+    with its frame windows gathered in the header windows' launch."""
+    bests, peaks, cfos, nv = _scan_candidates(layout, rr, ri, n_valid, k=k)
+    pre_r, pre_i = extract_windows(rr, ri, bests, _prefix_len(layout))
+    return bests, peaks, cfos, *_scan_headers(layout, pre_r, pre_i, bests, cfos, nv)
 
 
 # The adaptive receiver builds on everything above, so its module is imported

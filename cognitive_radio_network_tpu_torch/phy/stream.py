@@ -22,9 +22,12 @@ Two ways to drive it:
   records go to pinned host memory in groups, by copies that run beside the
   next steps, and are read when a step falls ``max_lag`` behind.
 
-Window gathers go through :func:`..ops.extract.extract_windows` and the
-candidate walk through :func:`..ops.resolve.resolve_candidates`: CUDA kernels
-on the card, their plain versions on the CPU.
+Window gathers go through :func:`..ops.extract.extract_windows` and
+:func:`..ops.extract.extract_window_sets` and the candidate walk through
+:func:`..ops.resolve.resolve_candidates`: CUDA kernels on the card, their
+plain versions on the CPU.  A device step gathers twice: the refinement
+windows, then the header windows and every speculated configuration's frame
+windows at the same offsets in one launch, into windows the receiver owns.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import functools
 import numpy as np
 import torch
 
+from cognitive_radio_network_tpu_torch.ops.extract import extract_window_sets
 from cognitive_radio_network_tpu_torch.ops.resolve import resolve_candidates
 from cognitive_radio_network_tpu_torch.phy import crc as crc_mod
 from cognitive_radio_network_tpu_torch.phy import fec as fec_mod
@@ -48,8 +52,15 @@ from cognitive_radio_network_tpu_torch.phy.framegen import (
 from cognitive_radio_network_tpu_torch.phy.framesync import (
     OFDMFrameSync,
     _bucket_len,
+    _prefix_len,
+    _refine_len,
+    _rows,
     _rx_at_graph,
+    _rx_graph,
     _scan_block_graph,
+    _scan_candidates,
+    _scan_headers,
+    _window_buffers,
 )
 from cognitive_radio_network_tpu_torch.signal.iq import split_iq
 
@@ -100,7 +111,11 @@ def _rx_at_graph_packed(gen: OFDMFrameGen, rr, ri, offsets, cfos):
     """:func:`_rx_at_graph` with its outputs in two arrays: uint8 (G, 16 + P)
     [header[8], phy[6], payload[P], hdr_ok, pay_ok] and float32 (G, 3)
     [evm_db, rssi_db, cfo]."""
-    out = _rx_at_graph(gen, rr, ri, offsets, cfos)
+    return _pack_rx(_rx_at_graph(gen, rr, ri, offsets, cfos))
+
+
+def _pack_rx(out: dict):
+    """A fused receive's outputs in the two arrays of :func:`_rx_at_graph_packed`."""
     bytes_cols = [
         out["headers"],
         out["phy"],
@@ -188,12 +203,6 @@ def _phy_geometry(layout: OFDMFrameGen, phy: torch.Tensor):
     return 2 * m + (m + cp) * (1 + num_symbols), valid
 
 
-def _prefix_len(layout: OFDMFrameGen) -> int:
-    """Samples from a frame's start to the end of its header symbols."""
-    m, cp = layout.cfg.num_subcarriers, layout.cfg.cp_len
-    return 2 * m + (m + cp) * (1 + layout.n_header_syms)
-
-
 def _stream_step_graph(
     layout: OFDMFrameGen,
     spec_gens: tuple[OFDMFrameGen, ...],
@@ -206,6 +215,7 @@ def _stream_step_graph(
     thr: float,
     *,
     k: int,
+    ws: dict | None = None,
 ):
     """One adaptive stream step on the device, with nothing fetched: scan +
     greedy candidate resolution + speculative decode + residual carry.
@@ -232,7 +242,11 @@ def _stream_step_graph(
     recently seen payload configurations): every candidate is decoded under
     each, and ``match_idx`` says which (if any) equals its PHY header.  A
     frame that matches none (the configuration just changed) is decoded later
-    by the host-grouped path on the returned buffer planes.
+    by the host-grouped path on the returned buffer planes.  The header
+    windows and every spec's frame windows are gathered at the scan's offsets
+    in ONE launch (:func:`extract_window_sets`), each set clipped for its own
+    length; with ``ws`` the step's windows (those and the refinement's) are
+    the caller's, rewritten by each step (:func:`_window_buffers`).
 
     ``res_len`` is a 0-d int64 tensor; ``thr`` a Python float.  Returns
     (new_res_r, new_res_i, new_res_len, buf_r, buf_i, packed) where ``packed``
@@ -252,7 +266,16 @@ def _stream_step_graph(
     n_live = res_len + blk_r.shape[0]
     prefix = _prefix_len(layout)
 
-    bests, peaks, cfos, _headers, phy, hdr_ok = _scan_block_graph(layout, buf_r, buf_i, n, k=k)
+    wlens = (prefix, *(sg.frame_len for sg in spec_gens))
+    tlen = layout.device_constants(dev)["tmpl"].shape[0]
+    m, cp = layout.cfg.num_subcarriers, layout.cfg.cp_len
+    bufs = _window_buffers(ws, buf_r, k, (_refine_len(m, cp, tlen), *wlens))
+    bests, peaks, cfos, nv = _scan_candidates(
+        layout, buf_r, buf_i, n, k=k, ws=None if bufs is None else bufs[0])
+    kk = bests.shape[0]
+    wins = extract_window_sets(
+        buf_r, buf_i, bests, wlens, out=None if bufs is None else [_rows(b, kk) for b in bufs[1:]])
+    _headers, phy, hdr_ok = _scan_headers(layout, *wins[0], bests, cfos, nv)
     flen, phy_valid = _phy_geometry(layout, phy)
 
     # greedy resolution in offset order (the host loop of _resolve_candidates)
@@ -285,7 +308,7 @@ def _stream_step_graph(
     for s, sg in enumerate(spec_gens):
         m_s = (phy == sg.device_constants(dev)["phy"]).all(dim=1)
         match_idx = torch.where((match_idx < 0) & m_s, s, match_idx)
-        db, df = _rx_at_graph_packed(sg, buf_r, buf_i, bests, cfos)
+        db, df = _pack_rx(_rx_graph(sg, *wins[1 + s], cfos))
         dec_bytes.append(db)
         dec_f32.append(df)
 
@@ -360,6 +383,9 @@ class StreamReceiver:
             (256, cfg.mod_scheme, cfg.fec0, cfg.fec1, cfg.crc_scheme)
         ]
         self._pending_steps: list[tuple] = []  # steps dispatched and not yet read
+        # the device step's windows (refinement, header and frame windows),
+        # kept from step to step: steps run in order on one stream
+        self._step_windows: dict = {}
         # consecutive steps' packed records are stacked on the device and
         # copied to the host in ONE transfer per group of this many steps
         self.fetch_group = 8
@@ -562,6 +588,7 @@ class StreamReceiver:
         ) = _stream_step_graph(
             self.layout, spec_gens, self.max_residual,
             self._res_r_d, self._res_i_d, self._res_len_d, blk_r, blk_i, float(threshold), k=keff,
+            ws=self._step_windows,
         )
         # group the step's packed record: one copy to the host per
         # fetch_group steps, running beside the next steps

@@ -9,8 +9,9 @@ JAX, which a machine for the port need not have):
 
 Bounds are those of chip_smoke.py: avg rtol 1e-4, atol 1e-5 and feats rtol
 1e-4 for f32 input; feats rtol 2e-2 of the f32 result for bf16 input.
-``extract_windows`` is a copy: its kernel must equal the plain version bit
-for bit (``torch.equal``).  ``wideband_energy_fused``: rtol 1e-5, atol 1e-7
+``extract_windows`` and ``extract_window_sets`` are copies: the kernel must
+equal the plain version bit for bit (``torch.equal``), into windows it
+allocates and into the caller's.  ``wideband_energy_fused``: rtol 1e-5, atol 1e-7
 against the plain version at "highest" (both float32, an FFT against a matrix
 product); a stream cut in two with the history carried gives the whole
 stream's bits.  ``fused_band_features``: rtol 1e-4 against the dense plain
@@ -29,7 +30,12 @@ import torch
 
 from cognitive_radio_network_tpu_torch.models import SenseConfig, make_sense_fn
 from cognitive_radio_network_tpu_torch.models.distributed import make_sharded_apply
-from cognitive_radio_network_tpu_torch.ops.extract import extract_windows, extract_windows_plain
+from cognitive_radio_network_tpu_torch.ops.extract import (
+    extract_window_sets,
+    extract_window_sets_plain,
+    extract_windows,
+    window_buffers,
+)
 from cognitive_radio_network_tpu_torch.ops.fused_sense import (
     fused_band_features,
     fused_band_features_plain,
@@ -157,25 +163,55 @@ def _link_planes(n, seed=0):
     return tuple(torch.randn(n, generator=g, device="cuda") for _ in range(2))
 
 
+STEP_N = 2_056_192  # the adaptive stream step's buffer: residual + one block (chip_smoke.py phase 17)
+STEP_WLENS = (688, 4864, 2080)  # its header windows and two speculated configs' frames
+
+
 @pytest.mark.parametrize(
-    "n,k,wlen",
-    [(LINK_N, 256, 4864), (LINK_N, 256, 160), (LINK_N, 3, 333), (100, 4, 160), (5000, 1, 1)],
+    "n,k,wlen,lead",
+    [
+        (LINK_N, 256, 4864, 0),
+        (LINK_N, 256, 160, 0),
+        (LINK_N, 3, 333, 0),
+        (100, 4, 160, 0),
+        (5000, 1, 1, 0),
+        (STEP_N, 520, STEP_WLENS, 0),
+        (STEP_N, 520, STEP_WLENS, 1),
+        (STEP_N, 64, (333, 160, 4864, 1), 3),
+        (3000, 8, (160, 4864), 2),
+        (5000, 0, STEP_WLENS, 0),
+        (5000, 16, (0, 688), 1),
+    ],
 )
-def test_extract_kernel_equals_plain(n, k, wlen):
-    rr, ri = _link_planes(n, seed=k)
-    g = torch.Generator(device="cuda").manual_seed(wlen)
+def test_extract_kernel_equals_plain(n, k, wlen, lead):
+    """The kernel equals the plain version bit for bit.  ``wlen`` a tuple:
+    one launch of ``extract_window_sets`` for every set, each clipped for its
+    own length (offsets within 4864 of the end clip differently per set).
+    ``lead``: the planes start ``lead`` floats into their allocation, so their
+    base is not 16-byte aligned unless ``lead % 4 == 0``.  Offsets take every
+    residue mod 4; windows are also gathered into caller-owned buffers."""
+    rr, ri = (x[lead:] for x in _link_planes(n + lead, seed=k))
+    wlens = wlen if isinstance(wlen, tuple) else (wlen,)
+    g = torch.Generator(device="cuda").manual_seed(sum(wlens))
     offs = torch.randint(-50, n + 50, (k,), generator=g, device="cuda")
-    edge = torch.tensor([-7, n - 3, n + 100, 0, 1, n - wlen], device="cuda")
-    offs[: min(k, 6)] = edge[: min(k, 6)]
+    edge = torch.tensor([-7, n - 3, n + 100, 0, 1, n - max(wlens), 4097, 4098, 4099, 4100,
+                         n - 4863, n - 1000, n - 689], device="cuda")
+    offs[: min(k, len(edge))] = edge[: min(k, len(edge))]
     for o in (offs, offs.int()):
         before = extract_windows.launches
-        got = extract_windows(rr, ri, o, wlen)
-        assert extract_windows.launches == before + 1
-        want = extract_windows_plain(rr, ri, o, wlen)
+        got = extract_window_sets(rr, ri, o, wlens)
+        assert extract_windows.launches == before + (1 if k and any(wlens) else 0)
+        if len(wlens) == 1:
+            one = extract_windows(rr, ri, o, wlen)
+            assert torch.equal(one[0], got[0][0]) and torch.equal(one[1], got[0][1])
+        want = extract_window_sets_plain(rr, ri, o, wlens)
+        out = window_buffers(rr, k, wlens)
+        into = extract_window_sets(rr, ri, o, wlens, out=out)
         torch.cuda.synchronize()
-        assert got[0].shape == (k, wlen)
-        assert got[0].is_contiguous() and got[1].is_contiguous()
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        for (gr, gi), (wr, wi), (ir, ii), (orr, oi), w in zip(got, want, into, out, wlens):
+            assert gr.shape == (k, w) and gr.is_contiguous() and gi.is_contiguous()
+            assert torch.equal(gr, wr) and torch.equal(gi, wi)
+            assert ir is orr and ii is oi and torch.equal(ir, wr) and torch.equal(ii, wi)
 
 
 def test_extract_kernel_rejects_bad_input():
@@ -191,6 +227,15 @@ def test_extract_kernel_rejects_bad_input():
         extract_windows(rr, ri, offs.cpu(), 10)
     with pytest.raises(ValueError, match="expected planes"):
         extract_windows(rr.reshape(10, 100), ri.reshape(10, 100), offs, 10)
+    good = torch.empty(2, 10, device="cuda")
+    for bad, exc in ((torch.empty(3, 10, device="cuda"), ValueError),
+                     (torch.empty(2, 10, device="cuda", dtype=torch.float64), TypeError),
+                     (torch.empty(2, 10), ValueError),
+                     (torch.empty(10, 2, device="cuda").t(), ValueError)):
+        with pytest.raises(exc, match="out"):
+            extract_windows(rr, ri, offs, 10, out=(good, bad))
+    with pytest.raises(ValueError, match="1 to 4 window lengths"):
+        extract_window_sets(rr, ri, offs, (10,) * 5)
 
 
 def test_link_on_card_launches_kernel_and_matches_cpu():
@@ -471,16 +516,19 @@ def test_stream_receiver_on_card_three_apis_and_cpu_agree():
         out["host"] += rx_h.process(seg)
         out["dev"] += rx_d.process_device(re, im)
         torch.cuda.set_sync_debug_mode("error")  # a wait inside the dispatch would raise
+        before_feed = extract_windows.launches
         try:
             got = rx_p.feed_device(re, im, max_lag=100)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         assert got == []
+        # the refinement windows, then the header and frame windows in one launch
+        assert extract_windows.launches == before_feed + 2
         out["cpu"] += rx_c.process_device(re.cpu(), im.cpu())
         steps += 1
     out["pipe"] += rx_p.flush()
     assert resolve_candidates.launches == before[1] + 2 * steps
-    assert extract_windows.launches >= before[0] + (2 + 3 + 3) * steps  # process scans with 2
+    assert extract_windows.launches >= before[0] + (2 + 2 + 2) * steps  # each API's scan: 2
     assert len(out["host"]) == len(sent) >= 8
     for key, frames in out.items():
         assert [fr["offset"] for fr in frames] == [fr["offset"] for fr in out["host"]], key

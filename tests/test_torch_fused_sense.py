@@ -10,8 +10,10 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from cognitive_radio_network_tpu.ops.fused_sense_ct import ct_band_features as jax_ct_band_features
 from cognitive_radio_network_tpu.ops.fused_sense_ct import fused_sense_ct as jax_fused_sense_ct
 from cognitive_radio_network_tpu_torch.ops.fused_sense_ct import (
+    ct_band_features,
     fused_sense_ct,
     fused_sense_ct_plain,
 )
@@ -98,3 +100,18 @@ def test_rejects_unknown_precision():
     x = torch.zeros(10, 512)
     with pytest.raises(ValueError, match="precision"):
         fused_sense_ct(x, x, precision="tf32")
+
+
+@pytest.mark.parametrize("form", ["planar", "interleaved"])
+def test_ct_band_features_matches_jax(rng, form):
+    """The features alone, from a planar tuple or (C, A, N, 2) planes, within
+    the bounds of the features above of the JAX ``ct_band_features`` and
+    equal to ``fused_sense_ct``'s."""
+    iq = rng.standard_normal((5, 10, 512, 2)).astype(np.float32)
+    want = jax_ct_band_features(jnp.asarray(iq), tile_c=4, precision="highest", interpret=True)
+    xr, xi = (torch.from_numpy(v) for v in _planar(iq))
+    planes = (xr, xi) if form == "planar" else torch.from_numpy(iq)
+    got = ct_band_features(planes, precision="highest")
+    assert got.shape == (5, 4) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4)
+    assert torch.equal(got, fused_sense_ct(xr, xi, precision="highest")[1])

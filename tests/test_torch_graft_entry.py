@@ -5,7 +5,8 @@ ranks on the CPU, as tests/test_graft_entry.py runs the reference's.
 
 The port's dry run asserts more than the reference's: each stage equals its
 one-device counterpart (the loss within rtol 1e-5, the frames byte for
-byte), so a pass here is a numerical check, not only liveness.
+byte, the energy at ``WidebandConfig()`` within rtol 1e-5), so a pass here is
+a numerical check, not only liveness.
 """
 
 import sys
@@ -38,4 +39,5 @@ def test_dryrun_multichip(n, capsys):
     assert out["phylink_frames"] == out["adaptive_frames"] == out["placed"] == (2 if n > 1 else 1)
     assert abs(out["loss"] - out["one_device_loss"]) <= 1e-5 * abs(out["one_device_loss"])
     assert out["step"] == 1
+    assert out["wideband_cycles"] == 2  # each rank's block at M=64, P=8 held to one device's
     assert "dryrun_multichip ok" in capsys.readouterr().out

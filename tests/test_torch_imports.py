@@ -98,6 +98,31 @@ def test_port_modules_load_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_public_names_of_the_reference_are_exported():
+    """The reference's re-exports and kernel wrappers named in its ``__all__``
+    have counterparts of the same name in the port's packages."""
+    import importlib
+
+    import cognitive_radio_network_tpu_torch.env as env
+    import cognitive_radio_network_tpu_torch.signal as signal
+    from cognitive_radio_network_tpu_torch.env.interference import (
+        InterfererConfig,
+        synthesize_interference,
+    )
+    from cognitive_radio_network_tpu_torch.signal.msequence import MSequence, msequence_bytes
+
+    # the package binds the function's name over its module's: import by path
+    fused_sense_ct = importlib.import_module("cognitive_radio_network_tpu_torch.ops.fused_sense_ct")
+    for module, names in ((signal, ("MSequence", "msequence_bytes")),
+                          (env, ("InterfererConfig", "synthesize_interference")),
+                          (fused_sense_ct, ("ct_band_features",))):
+        for name in names:
+            assert name in module.__all__ and hasattr(module, name), (module.__name__, name)
+    assert signal.MSequence is MSequence and signal.msequence_bytes is msequence_bytes
+    assert env.InterfererConfig is InterfererConfig
+    assert env.synthesize_interference is synthesize_interference
+
+
 def _modules_loaded_in_a_rank() -> list:
     """Run in a rank: load the multi-device layer, then list what of JAX and
     of the JAX package the process holds."""

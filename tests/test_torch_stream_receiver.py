@@ -573,3 +573,100 @@ def test_config_change_takes_the_fallback_decode(rng, monkeypatch):
     assert matched[:2] == [-1, -1] and set(matched[2:]) == {0, 1}
     assert len(calls) == 2  # and only then
     _assert_frames_equal(got, _rx(8).process(data))
+
+
+# --- caller-owned windows ----------------------------------------------------
+
+_KEY_A, _KEY_B = (48, "qam4", "h128", "none", "crc32"), (40, "qam16", "none", "none", "crc32")
+
+
+def _flat(outputs) -> list:
+    """Every tensor in a step's or a block receiver's outputs, dicts opened."""
+    flat = []
+    for x in outputs:
+        flat += list(x.values()) if isinstance(x, dict) else [x]
+    return flat
+
+
+def _storages(ws: dict) -> set:
+    return {x.untyped_storage().data_ptr() for bufs in ws.values() for pair in bufs for x in pair}
+
+
+def test_stream_step_into_caller_windows_returns_none_of_them(rng):
+    """The step with caller-owned windows (``ws``) gives the record of the
+    step that allocates its own; a second step into the same windows, on
+    another block, leaves every tensor the first returned unchanged."""
+    blk1, blk2 = _one_block(rng), _one_block(rng)
+    rx = _rx(8)
+    gens = tuple(rx._sync_for(*key).gen for key in sorted([_KEY_A, _KEY_B]))
+    res = np.zeros(framesync._bucket_len(rx.max_residual), np.complex64)
+
+    def step(blk, ws):
+        return stream._stream_step_graph(
+            rx.layout, gens, rx.max_residual, *_planes(res, "torch"), torch.tensor(0),
+            *_planes(blk, "torch"), 0.2, k=8, ws=ws)
+
+    ws = {}
+    first = step(blk1, ws)
+    kept = [t.clone() for t in first]
+    (key,) = ws
+    assert key[1:] == (8, (160, stream._prefix_len(rx.layout), *(g.frame_len for g in gens)))
+    for got, want in zip(first, step(blk1, None)):
+        assert torch.equal(got, want)
+    windows = _storages(ws)
+    assert len(windows) == 1  # one allocation
+    second = step(blk2, ws)
+    assert _storages(ws) == windows  # the same windows, rewritten
+    for got, want in zip(first, kept):
+        assert torch.equal(got, want)
+    assert not torch.equal(second[5], first[5])
+    assert not windows & {t.untyped_storage().data_ptr() for t in first + second}
+
+
+def test_rx_block_fn_keeps_its_windows_and_returns_none_of_them(rng):
+    """``rx_block_fn``'s function gathers into windows it owns: a second call
+    on another block leaves the first call's outputs unchanged, and they equal
+    those of a call that allocates its windows."""
+    blk1, blk2 = _one_block(rng), _one_block(rng)
+    sync = framesync.OFDMFrameSync(OFDMFrameConfig(), 48, device="cpu")
+    fn = sync.rx_block_fn(k=8)
+    first = fn(*_planes(blk1, "torch"), len(blk1))
+    kept = [t.clone() for t in _flat(first)]
+    ws = fn.keywords["ws"]
+    (key,) = ws
+    assert key[1:] == (8, (160, sync.gen.frame_len))
+    want = framesync._receive_block_graph(sync.gen, *_planes(blk1, "torch"), len(blk1), k=8)
+    for got, w in zip(_flat(first), _flat(want)):
+        assert torch.equal(got, w)
+    assert int(first[4].sum()) >= 2  # the two default-config frames decode
+    windows = _storages(ws)
+    second = fn(*_planes(blk2, "torch"), len(blk2))
+    assert _storages(ws) == windows
+    for got, w in zip(_flat(first), kept):
+        assert torch.equal(got, w)
+    assert not windows & {t.untyped_storage().data_ptr() for t in _flat(first) + _flat(second)}
+
+
+def test_device_step_gathers_twice_and_matches_jax(rng, monkeypatch):
+    """A device step gathers twice: the refinement windows, then the header
+    windows and every speculated configuration's frame windows in one call at
+    the scan's offsets.  The frames equal the JAX receiver's."""
+    data, placed = _mixed_stream(rng, 14000, 48, 40, 997, 50, {"mod_scheme": "qam16", "fec0": "none"})
+    rx = _rx(8)
+    rx._spec_lru = [_KEY_A, _KEY_B]  # both configs speculated: no fallback decode
+    calls = []
+    one, sets = framesync.extract_windows, stream.extract_window_sets
+    monkeypatch.setattr(framesync, "extract_windows",
+                        lambda *a, **kw: calls.append(("one", a[3])) or one(*a, **kw))
+    monkeypatch.setattr(stream, "extract_window_sets",
+                        lambda *a, **kw: calls.append(("sets", a[3])) or sets(*a, **kw))
+    got, steps = [], 0
+    for s in range(0, len(data), 1536):
+        got += rx.feed_device(*_planes(data[s : s + 1536], "torch"), max_lag=2)
+        steps += 1
+    got += rx.flush()
+    wlens = (stream._prefix_len(rx.layout), *(rx._sync_for(*k).gen.frame_len
+                                              for k in sorted([_KEY_A, _KEY_B])))
+    assert calls == [("one", 160), ("sets", wlens)] * steps
+    _assert_ground_truth(got, placed)
+    _assert_frames_equal(got, _jrx(8).process(data))
