@@ -113,9 +113,10 @@ def make_sharded_train_step(
     :class:`..models.train.TrainState`); with ``mesh`` the network is the
     mesh's first rank's, broadcast.  ``step_fn(state, planes (B, T*M, 2),
     labels (B, C, M)) -> (state, loss)`` senses the batch with
-    :func:`..parallel.wideband.wideband_sense` (B kernel launches on the card
-    when the shape takes the fused path; with a mesh, one per stream of the
-    rank's block), builds the per-channel features and takes one Adam step on
+    :func:`..parallel.wideband.wideband_sense` (one kernel launch a step on
+    the card when the shape takes the fused path, the planes read in place;
+    with a mesh, one a rank for its block), builds the per-channel features
+    and takes one Adam step on
     the BCE of output 0.  The sensing runs without gradient: its outputs are
     data for the step, as in the reference, where the parameters never reach
     them.  Planes and labels that lie elsewhere (numpy included) are moved to
@@ -154,9 +155,10 @@ def make_sharded_apply(cfg: WidebandConfig, *, mesh: DeviceMesh | None = None, d
     Taps live on ``device`` (the card unless the caller asks for the CPU),
     and planes given as numpy or on another device are moved there.
     ``params`` is a 4-n-1 :class:`..signal.mlp.OccupancyMLP` on the same
-    device.  With ``mesh`` every rank is given the whole batch, moves only its
-    block to ``device`` and returns its (B/dd, C/dt, M/dc) block of the
-    probabilities."""
+    device.  The batch is sensed by one kernel launch a call on the card (the
+    planes read in place).  With ``mesh`` every rank is given the whole batch,
+    moves only its block to ``device`` and returns its (B/dd, C/dt, M/dc)
+    block of the probabilities, one launch a rank."""
     device = torch.device(device)
     taps = torch.from_numpy(cfg.taps()).to(device)
 

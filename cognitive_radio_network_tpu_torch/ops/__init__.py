@@ -7,6 +7,7 @@ Each replaces one Pallas TPU kernel of ``cognitive_radio_network_tpu/ops``
 ``extract_windows``        ``extract.py``         -> ``csrc/extract_windows.cu``
 ``extract_window_sets``    (the same kernel: up to four window sets a launch)
 ``wideband_energy_fused``  ``fused_wideband.py``  -> ``csrc/fused_wideband.cu``
+``wideband_energy_fused_planes``  (the same kernel on interleaved planes)
 ``fused_band_features``    ``fused_sense.py``     -> ``csrc/fused_sense.cu``
 
 Every TPU kernel of the reference has its counterpart here.  One kernel has
@@ -33,6 +34,8 @@ from cognitive_radio_network_tpu_torch.ops.fused_sense_ct import (
 from cognitive_radio_network_tpu_torch.ops.fused_wideband import (
     wideband_energy_fused,
     wideband_energy_fused_plain,
+    wideband_energy_fused_planes,
+    wideband_energy_fused_planes_plain,
 )
 from cognitive_radio_network_tpu_torch.ops.resolve import (
     resolve_candidates,
@@ -52,4 +55,6 @@ __all__ = [
     "resolve_candidates_plain",
     "wideband_energy_fused",
     "wideband_energy_fused_plain",
+    "wideband_energy_fused_planes",
+    "wideband_energy_fused_planes_plain",
 ]

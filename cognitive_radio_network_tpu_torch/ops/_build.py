@@ -49,8 +49,10 @@ _SIGNATURES = {
     # rr, ri, offsets, offsets_i32, n, k, count, then (out_r, out_i, wlen) for
     # each of 4 sets (the unused ones null and 0), stream
     "crn_extract_window_sets": (_P, _P, _P, _I, _L, _I, _I, *(_P, _P, _I) * 4, _P),
-    # xr, xi, taps, tw, hist_r, hist_i (null: none), out, cycles, block_len, stream
-    "crn_fused_wideband": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _P),
+    # xr, xi (null: interleaved), their stream strides, hist_r, hist_i (null:
+    # none), their stream strides, taps, tw, out, batch, cycles, block_len,
+    # interleaved, stream
+    "crn_fused_wideband": (_P, _P, _L, _L, _P, _P, _L, _L, _P, _P, _P, _I, _L, _I, _I, _P),
     # xr, xi, tw, band, feats, cycles, averaging, stream
     "crn_fused_sense": (_P, _P, _P, _P, _P, _I, _I, _P),
     # offs, peaks, ok, flen, keep0, accept, meta, k, thr, n, prefix, stream

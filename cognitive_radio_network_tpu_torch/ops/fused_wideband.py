@@ -1,4 +1,4 @@
-"""The fused 64-channel wideband energy detector: wide stream -> per-cycle channel energy.
+"""The fused 64-channel wideband energy detector: wide streams -> per-cycle channel energy.
 
 Port of ``cognitive_radio_network_tpu/ops/fused_wideband.py`` (the Pallas TPU
 kernel ``_kernel``) to a CUDA C++ kernel for Hopper,
@@ -12,11 +12,22 @@ times it computes the 64-channel generalisation of the reference's joint
 with the FIR, the DFT, the power and the mean in one kernel, so device memory
 sees the input once and (C, 64) energies.
 
-:func:`wideband_energy_fused` launches the kernel for CUDA tensors and runs
-:func:`wideband_energy_fused_plain`, the plain PyTorch version of the same
-contract (shifted multiply-adds, one (T, 128) @ (128, 128) product, power,
-mean), for CPU tensors.  The choice follows the tensor's device only; on a
-CUDA tensor the wrapper launches the kernel or raises.
+Two layouts, each with leading batch dimensions, one launch a call whatever
+the batch:
+
+- :func:`wideband_energy_fused` takes planar streams ``xr``, ``xi`` of shape
+  ``(..., T*M)``;
+- :func:`wideband_energy_fused_planes` takes interleaved planes
+  ``(..., T*M, 2)`` (``[re, im]`` pairs; a complex64 tensor is that layout
+  through ``torch.view_as_real``) and reads them in place.
+
+Streams may lie at any one stride that is a whole number of rows (64
+samples), so evenly spaced streams need no copy.  Each runs for CUDA tensors
+and runs its plain PyTorch version (:func:`wideband_energy_fused_plain`,
+:func:`wideband_energy_fused_planes_plain`: shifted multiply-adds, one
+(T, 128) @ (128, 128) product, power, mean) for CPU tensors.  The choice
+follows the tensor's device only; on a CUDA tensor the wrapper launches the
+kernel or raises.
 
 The kernel computes in float32 at every ``precision``; the argument selects
 the matmul precision of the plain version only.  The reference's ``tile_q``
@@ -30,16 +41,23 @@ The FIR's tap order lives here once, in :func:`_fir_rows`;
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
-from cognitive_radio_network_tpu_torch.ops._launch import input_ptr, launch
+from cognitive_radio_network_tpu_torch.ops._launch import launch
 from cognitive_radio_network_tpu_torch.signal.channelizer import _dft_tables
 from cognitive_radio_network_tpu_torch.signal.fft import PRECISIONS, _mm
 from cognitive_radio_network_tpu_torch.utils.device import on_cuda
 
-__all__ = ["wideband_energy_fused", "wideband_energy_fused_plain"]
+__all__ = [
+    "in_place_or_copy",
+    "wideband_energy_fused",
+    "wideband_energy_fused_plain",
+    "wideband_energy_fused_planes",
+    "wideband_energy_fused_planes_plain",
+]
 
 _M = 64  # channels of the kernel
 _P = 8  # taps per channel of the kernel (delays 0..7)
@@ -94,8 +112,39 @@ def _energy_rows(
     return power.reshape(*lead, t_total // block_len, block_len, m).mean(dim=-2)
 
 
-def _check(xr, xi, taps, cfg, initial_history):
-    """The contract of the kernel and of its plain version; returns T."""
+def _stream_stride(x: torch.Tensor, n_lead: int, row: int, what: str) -> int:
+    """The stride in floats between the streams of ``x`` (its first ``n_lead``
+    dimensions), 0 for one stream.  Raises ValueError unless the streams lie
+    at one stride that is a whole number of ``row``-float rows."""
+    dims = [(n, st) for n, st in zip(x.shape[:n_lead], x.stride()[:n_lead]) if n != 1]
+    if not dims:
+        return 0
+    for (_, outer), (n, inner) in zip(dims, dims[1:]):
+        if outer != inner * n:
+            raise ValueError(f"the streams of {what} must lie at one stride, got strides {x.stride()}")
+    stride = dims[-1][1]
+    if stride % row:
+        raise ValueError(
+            f"a stream stride of {stride} floats in {what} is not a whole number of rows of {row}"
+        )
+    return stride
+
+
+def _inner_contiguous(x: torch.Tensor, n_lead: int) -> bool:
+    """Whether each stream of ``x`` (its dimensions after the first
+    ``n_lead``) lies contiguous in memory."""
+    want = 1
+    for n, st in zip(reversed(x.shape[n_lead:]), reversed(x.stride()[n_lead:])):
+        if n != 1 and st != want:
+            return False
+        want *= n
+    return True
+
+
+def _check(streams, taps, cfg, initial_history, *, planes: bool):
+    """The contract of the kernel and of its plain versions: ``streams`` is
+    ``(xr, xi)``, each (..., T*M), or with ``planes`` one (..., T*M, 2)
+    tensor.  Returns (leading dimensions, T, the streams' strides)."""
     m, p = cfg.num_channels, cfg.taps_per_channel
     if (m, p) != (_M, _P):
         raise ValueError(f"fused path requires M=64, P=8, got {(m, p)}")
@@ -103,19 +152,42 @@ def _check(xr, xi, taps, cfg, initial_history):
         raise ValueError(f"block_len must be even, got {cfg.block_len}")
     if tuple(taps.shape) != (_P, _M):
         raise ValueError(f"taps must be ({_P}, {_M}), got {tuple(taps.shape)}")
-    if xr.dim() != 1 or xr.shape != xi.shape:
+    if planes:
+        x = streams
+        if x.dim() < 2 or x.shape[-1] != 2:
+            raise ValueError(f"expected interleaved planes (..., T*M, 2), got {tuple(x.shape)}")
+        lead, n_wide = x.shape[:-2], x.shape[-2]
+        strides = (_stream_stride(x, len(lead), 2 * m, "planes"),)
+    else:
+        xr, xi = streams
+        if xr.dim() < 1 or xr.shape != xi.shape:
+            raise ValueError(
+                f"expected planar streams (..., T*M), got {tuple(xr.shape)} and {tuple(xi.shape)}"
+            )
+        lead, n_wide = xr.shape[:-1], xr.shape[-1]
+        strides = tuple(_stream_stride(x, len(lead), m, w) for x, w in ((xr, "xr"), (xi, "xi")))
+    if n_wide % m or (n_wide // m) % cfg.block_len:
         raise ValueError(
-            f"expected planar streams (T*M,), got {tuple(xr.shape)} and {tuple(xi.shape)}"
-        )
-    if xr.shape[0] % m or (xr.shape[0] // m) % cfg.block_len:
-        raise ValueError(
-            f"T*M = {xr.shape[0]} must hold whole sense cycles of {cfg.block_len} x {m} samples"
+            f"T*M = {n_wide} must hold whole sense cycles of {cfg.block_len} x {m} samples"
         )
     if initial_history is not None:
         for hist in initial_history:
-            if tuple(hist.shape) != (4, 2 * m):
-                raise ValueError(f"initial_history rows must be (4, {2 * m})")
-    return xr.shape[0] // m
+            if tuple(hist.shape) != (*lead, 4, 2 * m):
+                raise ValueError(
+                    f"initial_history rows must be (4, {2 * m}) after the streams' leading "
+                    f"dimensions {tuple(lead)}, got {tuple(hist.shape)}"
+                )
+    return tuple(lead), n_wide // m, strides
+
+
+def _plain(xr, xi, taps, cfg, precision, initial_history) -> torch.Tensor:
+    history = None
+    if initial_history is not None:
+        # (..., 4, 2M) pair rows -> the 8 phase rows before the stream, of
+        # which the FIR needs the last 7: (..., 7, 2M) as _fir_rows takes it
+        hist_r, hist_i = (h.float().reshape(*h.shape[:-2], _P, _M)[..., 1:, :] for h in initial_history)
+        history = torch.cat([hist_r, hist_i], dim=-1)
+    return _energy_rows(xr, xi, taps, cfg.block_len, history, precision)
 
 
 def wideband_energy_fused_plain(
@@ -127,18 +199,52 @@ def wideband_energy_fused_plain(
     precision: str = "high",
     initial_history: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: (C, 64) float32 cycle energies.
+    """Plain PyTorch version of the kernel on planar streams: (..., C, 64)
+    float32 cycle energies.
 
-    ``initial_history`` is in the reference's pair rows, (4, 128) per plane:
-    row q holds the wide sample times 2q and 2q+1, so it reshapes to the 8
-    phase rows before the stream, of which the FIR needs the last 7."""
+    ``initial_history`` is in the reference's pair rows, (..., 4, 128) per
+    plane: row q holds the wide sample times 2q and 2q+1, so it reshapes to
+    the 8 phase rows before the stream, of which the FIR needs the last 7."""
     taps = torch.as_tensor(taps, dtype=torch.float32, device=xr.device)
-    _check(xr, xi, taps, cfg, initial_history)
-    history = None
-    if initial_history is not None:
-        hist_r, hist_i = (h.float().reshape(_P, _M)[1:] for h in initial_history)
-        history = torch.cat([hist_r, hist_i], dim=1)  # (7, 128), as _fir_rows takes it
-    return _energy_rows(xr, xi, taps, cfg.block_len, history, precision)
+    _check((xr, xi), taps, cfg, initial_history, planes=False)
+    return _plain(xr, xi, taps, cfg, precision, initial_history)
+
+
+def wideband_energy_fused_planes_plain(
+    planes: torch.Tensor,
+    taps,
+    cfg,
+    *,
+    precision: str = "high",
+    initial_history: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel on interleaved planes (..., T*M, 2)
+    (complex input through ``torch.view_as_real``): (..., C, 64) float32
+    cycle energies, bit-equal to :func:`wideband_energy_fused_plain` on the
+    two planes."""
+    planes = _as_planes(planes)
+    taps = torch.as_tensor(taps, dtype=torch.float32, device=planes.device)
+    _check(planes, taps, cfg, initial_history, planes=True)
+    return _plain(planes[..., 0], planes[..., 1], taps, cfg, precision, initial_history)
+
+
+def _as_planes(planes: torch.Tensor) -> torch.Tensor:
+    """Complex streams as their (..., N, 2) real view; planes as they are."""
+    return torch.view_as_real(planes) if planes.is_complex() else planes
+
+
+def in_place_or_copy(x: torch.Tensor, *, planes: bool) -> torch.Tensor:
+    """``x`` (float32 planar streams (..., N), or with ``planes`` interleaved
+    (..., N, 2)) as the kernel reads it: itself when it can be read in place
+    (each stream contiguous, the streams at one stride of whole rows, a
+    16-byte aligned base), else a contiguous copy."""
+    n_lead = x.dim() - (2 if planes else 1)
+    try:
+        ok = _inner_contiguous(x, n_lead) and x.data_ptr() % 16 == 0
+        ok = ok and _stream_stride(x, n_lead, 2 * _M if planes else _M, "x") % 4 == 0
+    except ValueError:
+        ok = False
+    return x if ok else x.clone(memory_format=torch.contiguous_format)
 
 
 @functools.lru_cache(maxsize=8)
@@ -148,11 +254,59 @@ def _twiddles(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.stack([np.cos(ang), np.sin(ang)]).astype(np.float32)).to(device)
 
 
-def _kernel_plane(x: torch.Tensor, what: str, device: torch.device) -> int:
-    """The address of float32 kernel input ``x`` after its checks."""
+def _kernel_input(x: torch.Tensor, what: str, device: torch.device, n_lead: int) -> int:
+    """The address of float32 kernel input ``x`` after its checks: on
+    ``device``, each stream contiguous, a 16-byte aligned base."""
     if x.dtype != torch.float32:
         raise TypeError(f"kernel takes float32 {what}, got {x.dtype}")
-    return input_ptr(x, what, device, aligned=True)
+    if x.device != device:
+        raise ValueError(f"kernel input on {device} but {what} on {x.device}: one card")
+    if not _inner_contiguous(x, n_lead):
+        raise ValueError(f"kernel takes {what} with each stream contiguous")
+    ptr = x.data_ptr()
+    if ptr % 16:
+        raise ValueError(f"kernel takes 16-byte aligned {what}")
+    return ptr
+
+
+def _launch(streams, taps, cfg, initial_history, *, planes: bool) -> torch.Tensor:
+    """One launch over every stream of ``streams`` (checked by :func:`_check`)."""
+    first = streams if planes else streams[0]
+    dev = first.device
+    taps = torch.as_tensor(taps, dtype=torch.float32, device=dev)
+    lead, t_total, strides = _check(streams, taps, cfg, initial_history, planes=planes)
+    n_lead = len(lead)
+    if planes:
+        p_r, p_i = _kernel_input(streams, "planes", dev, n_lead), None
+        s_r, s_i = strides[0], 0
+    else:
+        p_r = _kernel_input(streams[0], "xr", dev, n_lead)
+        p_i = _kernel_input(streams[1], "xi", dev, n_lead)
+        s_r, s_i = strides
+    h_r = h_i = None
+    hs_r = hs_i = 0
+    if initial_history is not None:
+        # any stride of whole 16-byte vectors: a stream's history is 512 floats
+        h_r, h_i = (_kernel_input(h, "initial_history", dev, n_lead) for h in initial_history)
+        hs_r, hs_i = (_stream_stride(h, n_lead, 4, "initial_history") for h in initial_history)
+    taps = taps.contiguous()
+    c = t_total // cfg.block_len
+    batch = math.prod(lead)
+    out = first.new_empty((*lead, c, _M), dtype=torch.float32)
+    if c == 0 or batch == 0:
+        return out
+    launch(
+        "crn_fused_wideband", dev,
+        p_r, p_i, s_r, s_i, h_r, h_i, hs_r, hs_i, taps.data_ptr(), _twiddles(dev).data_ptr(),
+        out.data_ptr(), batch, c, cfg.block_len, int(planes),
+    )
+    wideband_energy_fused.launches += 1
+    return out
+
+
+def _check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; expected one of {PRECISIONS}")
 
 
 def wideband_energy_fused(
@@ -164,47 +318,53 @@ def wideband_energy_fused(
     precision: str = "high",
     initial_history: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
-    """xr/xi: (T*M,) float32 planar wide stream -> (C, M) per-cycle channel
-    energies, C = T / cfg.block_len.  Numerically matches
+    """xr/xi: (..., T*M) float32 planar wide streams -> (..., C, M) per-cycle
+    channel energies, C = T / cfg.block_len; each stream of the leading
+    dimensions is a stream of its own.  Numerically matches
     ``parallel/wideband.py::wideband_energy_packed`` (same taps, same DFT).
 
-    Requires M=64, P=8, an even ``block_len`` and T a multiple of it.
-    ``initial_history``: optional (hist_r, hist_i), each (4, 2M) float32, the
-    4 pair rows (8 wide sample times) right before this stream, which seed
-    the FIR instead of rest-from-zero (the carry between two parts of one
-    stream).
+    Requires M=64, P=8, an even ``block_len`` and T a multiple of it, and the
+    streams at one stride that is a whole number of rows of 64.
+    ``initial_history``: optional (hist_r, hist_i), each (..., 4, 2M)
+    float32, the 4 pair rows (8 wide sample times) right before each stream,
+    which seed the FIR instead of rest-from-zero (the carry between two parts
+    of one stream).
 
-    CPU tensors run :func:`wideband_energy_fused_plain`.  CUDA tensors launch
-    the kernel on the current stream, without synchronizing; the planes must
-    be contiguous, 16-byte aligned float32 on one card.  Each launch adds one
-    to ``wideband_energy_fused.launches``.
+    CPU tensors run :func:`wideband_energy_fused_plain`.  CUDA tensors make
+    one launch for the whole batch on the current stream, without
+    synchronizing; each stream must be contiguous and the bases 16-byte
+    aligned float32 on one card.  Each launch adds one to
+    ``wideband_energy_fused.launches``.
     """
-    if precision not in PRECISIONS:
-        raise ValueError(f"unknown precision {precision!r}; expected one of {PRECISIONS}")
+    _check_precision(precision)
     if not on_cuda(xr):
         return wideband_energy_fused_plain(
             xr, xi, taps, cfg, precision=precision, initial_history=initial_history
         )
-    dev = xr.device
-    taps = torch.as_tensor(taps, dtype=torch.float32, device=dev)
-    t_total = _check(xr, xi, taps, cfg, initial_history)
-    p_xr = _kernel_plane(xr, "xr", dev)
-    p_xi = _kernel_plane(xi, "xi", dev)
-    taps = taps.contiguous()
-    hist = (None, None)
-    if initial_history is not None:
-        hist = tuple(_kernel_plane(h, "initial_history", dev) for h in initial_history)
-    c = t_total // cfg.block_len
-    out = xr.new_empty((c, _M))
-    if c == 0:
-        return out
-    launch(
-        "crn_fused_wideband", dev,
-        p_xr, p_xi, taps.data_ptr(), _twiddles(dev).data_ptr(), hist[0], hist[1], out.data_ptr(),
-        c, cfg.block_len,
-    )
-    wideband_energy_fused.launches += 1
-    return out
+    return _launch((xr, xi), taps, cfg, initial_history, planes=False)
+
+
+def wideband_energy_fused_planes(
+    planes: torch.Tensor,
+    taps,
+    cfg,
+    *,
+    precision: str = "high",
+    initial_history: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """:func:`wideband_energy_fused` on interleaved planes (..., T*M, 2)
+    float32, or complex64 (..., T*M), read in place: the same bits as the
+    planar form on the same samples.  The streams lie at one stride of whole
+    rows of 64 pairs; each must be contiguous.  One launch a call, counted on
+    ``wideband_energy_fused.launches``; CPU tensors run
+    :func:`wideband_energy_fused_planes_plain`."""
+    _check_precision(precision)
+    planes = _as_planes(planes)
+    if not on_cuda(planes):
+        return wideband_energy_fused_planes_plain(
+            planes, taps, cfg, precision=precision, initial_history=initial_history
+        )
+    return _launch(planes, taps, cfg, initial_history, planes=True)
 
 
 wideband_energy_fused.launches = 0

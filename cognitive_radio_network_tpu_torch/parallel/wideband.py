@@ -13,12 +13,14 @@ config 5).  The pipeline:
          (models/distributed.py)
 
 On one device (``mesh=None``), which energy path runs follows the input: a
-stream whose shape the fused path takes goes through
-``wideband_energy_fused`` (the kernel for a CUDA tensor, its plain version
-for a CPU tensor), a batch of such streams one call per stream; another
-shape, or ``use_fused=False``, goes through :func:`wideband_energy_packed`.
-(The reference keeps its kernel to the unbatched stream and sends a batch
-through its packed XLA form; here a batch on the card runs the kernel too.)
+stream or a batch of streams whose shape the fused path takes goes through
+``wideband_energy_fused`` (planar tuples) or ``wideband_energy_fused_planes``
+(interleaved planes and complex input, read in place): one kernel launch
+for a CUDA tensor, whatever the batch, its plain version for a CPU tensor.
+Another shape, or ``use_fused=False``, goes through
+:func:`wideband_energy_packed`.  (The reference keeps its kernel to the
+unbatched stream and sends a batch through its packed XLA form; here a
+batch on the card runs the kernel too.)
 
 Over a ``('time', 'channel'[, 'data'])`` mesh (:mod:`.mesh`), every rank is
 given the whole input and takes its block of it: its segment of each stream
@@ -31,8 +33,8 @@ segment, as the reference's ``in_specs`` leave ``channel`` replicated: each
 rank computes the energies and the noise floor over all M channels and keeps
 its M/dc columns of ``energy`` and ``occupied`` (the reference's
 ``P(t, "channel")`` constraint), so no all-to-all is needed.  A batched
-sharded block runs the kernel once per stream of the rank, each with its own
-history (the one-device divergence above).
+sharded block runs the kernel once for all the rank's streams, each with its
+own history.
 
 The reference's ``_pick_tile_q`` is the TPU kernel's tiling; the kernel here
 has no ``tile_q``.  What is left of it is its per-shard constraint, raised as
@@ -52,7 +54,9 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from cognitive_radio_network_tpu_torch.ops.fused_wideband import (
     _energy_rows,
+    in_place_or_copy,
     wideband_energy_fused,
+    wideband_energy_fused_planes,
 )
 from cognitive_radio_network_tpu_torch.parallel.halo import left_tail
 from cognitive_radio_network_tpu_torch.parallel.mesh import block, block_range
@@ -140,8 +144,8 @@ def wideband_sense(
     use_fused: bool | None = None,
 ):
     """planes: (T*M, 2) / (B, T*M, 2) wide IQ at rate M * per-channel rate,
-    or a planar tuple (xr, xi) of (T*M,) streams (the layout the kernel
-    reads, so the card path makes no copy).
+    complex (T*M,) / (B, T*M), or a planar tuple (xr, xi) of (T*M,) /
+    (B, T*M) streams; the kernel reads each layout in place.
 
     Returns dict:
       energy   (..., C, M)  per-cycle per-channel mean power
@@ -149,13 +153,14 @@ def wideband_sense(
       occupied (..., C, M)  boolean energy-detector decisions
     with C = T / block_len sense cycles.
 
-    The energy never needs the channelized IQ.  A stream goes through
-    :func:`..ops.fused_wideband.wideband_energy_fused` when its shape allows
-    (``use_fused=None`` selects it whenever M=64, P=8, block_len and T are
-    even; the wrapper launches the kernel on a CUDA tensor), and a batch of
-    streams goes through it stream by stream, each from rest: B launches.
-    ``use_fused=True`` on another shape raises; ``use_fused=False`` takes
-    :func:`wideband_energy_packed`.
+    The energy never needs the channelized IQ.  A stream, or a batch of
+    streams each from rest, goes through the fused path when its shape
+    allows (``use_fused=None`` selects it whenever M=64, P=8, block_len and
+    T are even): :func:`..ops.fused_wideband.wideband_energy_fused` for a
+    planar tuple, :func:`..ops.fused_wideband.wideband_energy_fused_planes`
+    for planes or complex input, read in place; on a CUDA tensor that is one
+    kernel launch, whatever the batch.  ``use_fused=True`` on another shape
+    raises; ``use_fused=False`` takes :func:`wideband_energy_packed`.
 
     With ``mesh``, ``planes`` is the whole input on every rank (host or any
     device); this rank moves its block to ``taps``' device and returns its
@@ -170,31 +175,44 @@ def wideband_sense(
         for key in ("energy", "occupied"):
             out[key] = out[key][..., lo:hi]
         return out
-    m = cfg.num_channels
-    if isinstance(planes, (tuple, list)):
-        xr, xi = planes
+    streams = _as_streams(planes)
+    t_total = _check_shard(streams, cfg)
+    if _use_fused(cfg, t_total, use_fused):
+        energy = _fused_energy(streams, taps, cfg, cfg.precision)
     else:
-        xr, xi = split_iq(planes)  # one copy per plane: the kernel reads contiguous planes
-    t_total = xr.shape[-1] // m
-    if xr.shape[-1] % m or t_total % cfg.block_len:
-        raise ValueError(
-            f"{xr.shape[-1]} wide samples do not divide into sense cycles of "
-            f"{cfg.block_len} x {m}"
-        )
-    if not _use_fused(cfg, t_total, use_fused):
-        energy = wideband_energy_packed(xr, xi, taps, cfg, precision=cfg.precision)
-    elif xr.dim() == 1:
-        energy = wideband_energy_fused(xr, xi, taps, cfg, precision=cfg.precision)
-    else:
-        lead, n_wide = xr.shape[:-1], xr.shape[-1]
-        rows = [
-            wideband_energy_fused(r, i, taps, cfg, precision=cfg.precision)
-            for r, i in zip(xr.reshape(-1, n_wide), xi.reshape(-1, n_wide))
-        ]
-        cycles = t_total // cfg.block_len
-        energy = torch.stack(rows) if rows else xr.new_zeros((0, cycles, m))
-        energy = energy.reshape(*lead, cycles, m)
+        energy = wideband_energy_packed(*split_iq(streams), taps, cfg, precision=cfg.precision)
     return _decide(energy, cfg)
+
+
+def _as_streams(planes):
+    """The wide input as the fused path reads it: a planar tuple as contiguous
+    float32 (xr, xi); planes (..., N, 2), or complex (..., N) as its real
+    view, as float32 planes, not copied when already so."""
+    if isinstance(planes, (tuple, list)):
+        return split_iq(planes)
+    x = planes if isinstance(planes, torch.Tensor) else torch.as_tensor(np.asarray(planes))
+    if x.is_complex():
+        x = torch.view_as_real(x.to(torch.complex64))
+    elif x.dim() < 2 or x.shape[-1] != 2:
+        raise ValueError(
+            f"IQ input must be complex, (..., 2) planes, or an (xr, xi) tuple; "
+            f"got {x.dtype} {tuple(x.shape)}"
+        )
+    return x.float()
+
+
+def _fused_energy(streams, taps, cfg, precision, initial_history=None) -> torch.Tensor:
+    """Kernel 3 (its plain version on the CPU) on planar or interleaved
+    streams: one launch for the batch, interleaved planes read in place."""
+    if isinstance(streams, tuple):
+        xr, xi = streams
+        return wideband_energy_fused(
+            xr, xi, taps, cfg, precision=precision, initial_history=initial_history
+        )
+    return wideband_energy_fused_planes(
+        in_place_or_copy(streams, planes=True), taps, cfg, precision=precision,
+        initial_history=initial_history,
+    )
 
 
 def _decide(energy: torch.Tensor, cfg: WidebandConfig) -> dict:
@@ -208,63 +226,61 @@ def _decide(energy: torch.Tensor, cfg: WidebandConfig) -> dict:
 
 
 def _stream_blocks(planes, mesh, time_axis, batch_axis, device):
-    """This rank's block of the whole input, as contiguous float32 planes on
-    ``device``: a stream (T*M,) is cut along ``time_axis``, a batch (B, T*M)
-    also along ``batch_axis``."""
+    """This rank's block of the whole input on ``device``, in the form
+    :func:`_as_streams` gives: a stream (T*M,) or planes (T*M, 2) is cut
+    along ``time_axis``, a batch (B, T*M) or (B, T*M, 2) also along
+    ``batch_axis``; planes on ``device`` stay a view."""
     if isinstance(planes, (tuple, list)):
         xr, xi = (torch.as_tensor(v) for v in planes)
         spec = (time_axis,) if xr.dim() == 1 else (batch_axis, time_axis)
         return split_iq((block(xr, mesh, spec, device), block(xi, mesh, spec, device)))
-    planes = torch.as_tensor(planes)
+    planes = _as_streams(planes)
     spec = (time_axis,) if planes.dim() == 2 else (batch_axis, time_axis)
-    return split_iq(block(planes, mesh, spec, device))
+    return block(planes, mesh, spec, device)
 
 
-def _check_shard(xr_l: torch.Tensor, cfg: WidebandConfig) -> int:
-    """The shard's T, after checking that it holds whole sense cycles."""
+def _check_shard(streams, cfg: WidebandConfig) -> int:
+    """The T of a stream (or of a shard), after checking that it holds whole
+    sense cycles."""
     m = cfg.num_channels
-    t_local = xr_l.shape[-1] // m
-    if xr_l.shape[-1] % m or t_local % cfg.block_len:
+    n_wide = streams[0].shape[-1] if isinstance(streams, tuple) else streams.shape[-2]
+    t_local = n_wide // m
+    if n_wide % m or t_local % cfg.block_len:
         raise ValueError(
-            f"a time shard of {xr_l.shape[-1]} wide samples does not hold whole sense cycles "
-            f"of {cfg.block_len} x {m}"
+            f"{n_wide} wide samples (of a stream, or of its time shard) do not hold whole "
+            f"sense cycles of {cfg.block_len} x {m}"
         )
     return t_local
 
 
-def _packed_block(xr_l, xi_l, taps, mesh, cfg, time_axis, precision) -> torch.Tensor:
+def _packed_block(streams, taps, mesh, cfg, time_axis, precision) -> torch.Tensor:
     """Rank body of the packed energy: the left neighbour's last P-1 phase
     rows seed this shard's FIR (:func:`.halo.left_tail`)."""
     m, p = cfg.num_channels, cfg.taps_per_channel
-    _check_shard(xr_l, cfg)
+    _check_shard(streams, cfg)
+    xr_l, xi_l = split_iq(streams)
     lead = xr_l.shape[:-1]
     rows = [v[..., xr_l.shape[-1] - (p - 1) * m :].reshape(*lead, p - 1, m) for v in (xr_l, xi_l)]
     hist = left_tail(torch.cat(rows, dim=-1).float(), p - 1, mesh, time_axis, axis=-2)
     return _energy_rows(xr_l, xi_l, taps, cfg.block_len, hist, precision)
 
 
-def _fused_block(xr_l, xi_l, taps, mesh, cfg, time_axis, precision) -> torch.Tensor:
-    """Rank body of the fused energy: kernel 3 on this shard, seeded through
-    ``initial_history`` with the left neighbour's last 4 pair rows of each
-    plane (zeros on shard 0); one launch per stream of a batched block."""
+def _fused_block(streams, taps, mesh, cfg, time_axis, precision) -> torch.Tensor:
+    """Rank body of the fused energy: kernel 3 on this shard, one launch for
+    all its streams, each seeded through ``initial_history`` with the left
+    neighbour's last 4 pair rows of each plane (zeros on shard 0)."""
     m = cfg.num_channels
-    t_local = _check_shard(xr_l, cfg)
+    t_local = _check_shard(streams, cfg)
     _use_fused(cfg, t_local, True)  # raises on a shape the kernel does not take
-    lead = xr_l.shape[:-1]
-    n = xr_l.shape[-1]
-    tails = torch.stack([xr_l[..., n - 8 * m :], xi_l[..., n - 8 * m :]], dim=-2)
+    if isinstance(streams, tuple):
+        xr_l, xi_l = streams
+        n = xr_l.shape[-1]
+        tails = torch.stack([xr_l[..., n - 8 * m :], xi_l[..., n - 8 * m :]], dim=-2)
+    else:
+        tails = streams[..., streams.shape[-2] - 8 * m :, :].movedim(-1, -2).contiguous()
+    lead = tails.shape[:-2]
     hist = left_tail(tails.reshape(*lead, 2, 4, 2 * m), 4, mesh, time_axis, axis=-2)
-    if xr_l.dim() == 1:
-        return wideband_energy_fused(
-            xr_l, xi_l, taps, cfg, precision=precision, initial_history=(hist[0], hist[1])
-        )
-    rows = [
-        wideband_energy_fused(r, i, taps, cfg, precision=precision, initial_history=(h[0], h[1]))
-        for r, i, h in zip(xr_l.reshape(-1, n), xi_l.reshape(-1, n), hist.reshape(-1, 2, 4, 2 * m))
-    ]
-    cycles = t_local // cfg.block_len
-    energy = torch.stack(rows) if rows else xr_l.new_zeros((0, cycles, m))
-    return energy.reshape(*lead, cycles, m)
+    return _fused_energy(streams, taps, cfg, precision, (hist[..., 0, :, :], hist[..., 1, :, :]))
 
 
 def sharded_wideband_energy_packed(
@@ -286,9 +302,9 @@ def sharded_wideband_energy_packed(
     batch whose rows are split along ``batch_axis`` (each row a stream of its
     own, its FIR from rest).  Returns this rank's block of the (C, M) /
     (B, C, M) energies, on the planes' device."""
-    xr_l, xi_l = _stream_blocks((xr, xi), mesh, time_axis, batch_axis, None)
-    taps = torch.from_numpy(cfg.taps()).to(xr_l.device)
-    return _packed_block(xr_l, xi_l, taps, mesh, cfg, time_axis, precision)
+    streams = _stream_blocks((xr, xi), mesh, time_axis, batch_axis, None)
+    taps = torch.from_numpy(cfg.taps()).to(streams[0].device)
+    return _packed_block(streams, taps, mesh, cfg, time_axis, precision)
 
 
 def sharded_wideband_energy_fused(
@@ -309,10 +325,10 @@ def sharded_wideband_energy_fused(
 
     Constraints: M=64, P=8; each shard's T a multiple of an even
     ``block_len``.  xr/xi as :func:`sharded_wideband_energy_packed` takes
-    them; a batched block launches the kernel once per stream."""
-    xr_l, xi_l = _stream_blocks((xr, xi), mesh, time_axis, batch_axis, None)
-    taps = torch.from_numpy(cfg.taps()).to(xr_l.device)
-    return _fused_block(xr_l, xi_l, taps, mesh, cfg, time_axis, precision)
+    them; a rank launches the kernel once for all its streams."""
+    streams = _stream_blocks((xr, xi), mesh, time_axis, batch_axis, None)
+    taps = torch.from_numpy(cfg.taps()).to(streams[0].device)
+    return _fused_block(streams, taps, mesh, cfg, time_axis, precision)
 
 
 def _sharded_sense(planes, taps, cfg, mesh, batch_axis, use_fused) -> dict:
@@ -320,10 +336,10 @@ def _sharded_sense(planes, taps, cfg, mesh, batch_axis, use_fused) -> dict:
     rank's block in, its cycles (and rows) of the outputs over all M
     channels out."""
     taps = torch.as_tensor(taps, dtype=torch.float32)
-    xr_l, xi_l = _stream_blocks(planes, mesh, "time", batch_axis, taps.device)
-    t_local = _check_shard(xr_l, cfg)
+    streams = _stream_blocks(planes, mesh, "time", batch_axis, taps.device)
+    t_local = _check_shard(streams, cfg)
     body = _fused_block if _use_fused(cfg, t_local, use_fused) else _packed_block
-    return _decide(body(xr_l, xi_l, taps, mesh, cfg, "time", cfg.precision), cfg)
+    return _decide(body(streams, taps, mesh, cfg, "time", cfg.precision), cfg)
 
 
 def make_wideband_fn(

@@ -14,14 +14,15 @@ equal the plain version bit for bit (``torch.equal``), into windows it
 allocates and into the caller's.  ``wideband_energy_fused``: rtol 1e-5, atol 1e-7
 against the plain version at "highest" (both float32, an FFT against a matrix
 product); a stream cut in two with the history carried gives the whole
-stream's bits.  ``fused_band_features``: rtol 1e-4 against the dense plain
+stream's bits, a batch (one launch) its streams' launched one by one, and
+interleaved planes the planar ones.  ``fused_band_features``: rtol 1e-4 against the dense plain
 version, 1e-6 against ``fused_sense_ct``'s features (the same register FFT in
 another kernel: equal or a few ulp), equal from run to run.
 ``resolve_candidates`` is integers and one float32 compare: ``torch.equal``.
 Training on the card: ``make_dataset`` launches the sense kernel once, its
 features within rtol 1e-4 of the CPU plain path's; a wideband train step
-launches the wideband kernel once per stream, its loss within rtol 1e-5 of
-the loss over the packed plain path's energies.
+launches the wideband kernel once for its batch, its loss within rtol 1e-5
+of the loss over the packed plain path's energies.
 """
 
 import numpy as np
@@ -47,6 +48,7 @@ from cognitive_radio_network_tpu_torch.ops.fused_sense_ct import (
 from cognitive_radio_network_tpu_torch.ops.fused_wideband import (
     wideband_energy_fused,
     wideband_energy_fused_plain,
+    wideband_energy_fused_planes,
 )
 from cognitive_radio_network_tpu_torch.ops.resolve import (
     resolve_candidates,
@@ -328,6 +330,67 @@ def test_wideband_kernel_history_and_split_stream():
     assert torch.equal(wideband_energy_fused(xr, xi, taps, cfg), rest)  # the same from run to run
 
 
+@pytest.mark.parametrize("t,block_len", [(4096, 128), (1280, 20), (60, 6), (64, 2)])
+def test_wideband_kernel_batch_is_one_launch_equal_to_its_streams(t, block_len):
+    """A batch in one launch gives each stream's bits as launched alone, in
+    every layout: planar, interleaved planes, complex64; with per-stream
+    histories within rtol 1e-5, atol 1e-7 of the plain version."""
+    cfg = WidebandConfig(block_len=block_len)
+    taps = torch.from_numpy(cfg.taps()).cuda()
+    b = 3
+    g = torch.Generator(device="cuda").manual_seed(block_len)
+    planes = torch.randn(b, t * 64, 2, generator=g, device="cuda")
+    hist = tuple(torch.randn(b, 4, 128, generator=g, device="cuda") for _ in range(2))
+    xr, xi = planes[..., 0].contiguous(), planes[..., 1].contiguous()
+    for h in (None, hist):
+        before = wideband_energy_fused.launches
+        batch = wideband_energy_fused(xr, xi, taps, cfg, initial_history=h)
+        inter = wideband_energy_fused_planes(planes, taps, cfg, initial_history=h)
+        cplx = wideband_energy_fused_planes(torch.view_as_complex(planes), taps, cfg, initial_history=h)
+        assert wideband_energy_fused.launches == before + 3
+        one = torch.stack([
+            wideband_energy_fused(xr[i], xi[i], taps, cfg,
+                                  initial_history=None if h is None else (h[0][i], h[1][i]))
+            for i in range(b)
+        ])
+        assert batch.shape == (b, t // block_len, 64)
+        assert torch.equal(batch, one) and torch.equal(inter, batch) and torch.equal(cplx, batch)
+        want = wideband_energy_fused_plain(xr, xi, taps, cfg, precision="highest", initial_history=h)
+        torch.testing.assert_close(batch, want, rtol=1e-5, atol=1e-7)
+    # B=1 is the unbatched call; the same from run to run
+    assert torch.equal(wideband_energy_fused(xr[:1], xi[:1], taps, cfg)[0],
+                       wideband_energy_fused(xr[0], xi[0], taps, cfg))
+    assert torch.equal(wideband_energy_fused_planes(planes, taps, cfg, initial_history=hist), inter)
+
+
+def test_wideband_kernel_reads_strided_streams_in_place_and_cuts_the_batch():
+    """Evenly spaced streams (a stride of whole rows) and views of a longer
+    batch need no copy; a batch cut in time with the tails carried as
+    per-stream histories gives the whole batch's bits; empty shapes."""
+    cfg = WidebandConfig()
+    taps = torch.from_numpy(cfg.taps()).cuda()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    t = 2048
+    wide = torch.randn(4, (t + 256) * 64, 2, generator=g, device="cuda")
+    planes = wide[:, : t * 64]  # stream stride (t + 256) rows
+    whole = wideband_energy_fused_planes(planes, taps, cfg)
+    assert torch.equal(whole, wideband_energy_fused_planes(planes.contiguous(), taps, cfg))
+    xr, xi = wide[..., 0].contiguous(), wide[..., 1].contiguous()
+    assert torch.equal(whole, wideband_energy_fused(xr[:, : t * 64], xi[:, : t * 64], taps, cfg))
+    h = 1024 * 64
+    first = wideband_energy_fused_planes(planes[:, :h], taps, cfg)
+    tails = planes[:, h - 512 : h].movedim(-1, -2).contiguous().reshape(4, 2, 4, 128)
+    second = wideband_energy_fused_planes(planes[:, h:], taps, cfg,
+                                          initial_history=(tails[:, 0], tails[:, 1]))
+    assert torch.equal(torch.cat([first, second], dim=1), whole)
+    assert wideband_energy_fused_planes(planes[:0], taps, cfg).shape == (0, t // 128, 64)
+    assert wideband_energy_fused_planes(planes[:, :0], taps, cfg).shape == (4, 0, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wideband_energy_fused_planes(wide.reshape(-1, 2)[1 : 1 + t * 64], taps, cfg)
+    with pytest.raises(ValueError, match="each stream contiguous"):
+        wideband_energy_fused_planes(wide[..., :1].expand(-1, -1, 2)[:, : t * 64], taps, cfg)
+
+
 def test_wideband_kernel_rejects_bad_input():
     cfg = WidebandConfig()
     xr, xi = _wide(256)
@@ -369,14 +432,16 @@ def test_wideband_path_launches_kernel_and_matches_cpu():
         mlp.w2.normal_(generator=g)
     before = wideband_energy_fused.launches
     probs = make_sharded_apply(cfg)(mlp, batch)
-    assert wideband_energy_fused.launches == before + 2  # one launch per stream of the batch
+    assert wideband_energy_fused.launches == before + 1  # one launch for the batch
     assert probs.shape == (2, t // 128, 64)
     assert bool(((probs > 0) & (probs < 1)).all())
-    # the batch through the kernel, stream by stream, against the packed plain path
+    # the batch through the kernel in one launch against the packed plain path
     fn = make_wideband_fn(cfg)
     fused, packed = fn(batch), fn(batch, use_fused=False)
-    assert wideband_energy_fused.launches == before + 4
+    assert wideband_energy_fused.launches == before + 2
     assert torch.equal(fused["energy"][0], res["energy"])
+    # complex input is read in place too, with the same bits
+    assert torch.equal(fn(torch.view_as_complex(batch))["energy"], fused["energy"])
     torch.testing.assert_close(fused["energy"], packed["energy"], rtol=1e-5, atol=1e-7)
     assert torch.equal(fused["occupied"], packed["occupied"])
 
@@ -641,7 +706,7 @@ def test_make_dataset_on_card_launches_sense_kernel_once_and_matches_cpu(monkeyp
 
 
 def test_wideband_train_step_on_card_launches_kernel_per_stream_and_matches_packed():
-    """One step over a batch of B streams launches the wideband kernel B times;
+    """One step over a batch of B streams launches the wideband kernel once;
     its loss equals the loss over the packed plain path's energies (rtol 1e-5)."""
     from cognitive_radio_network_tpu_torch.models.distributed import (
         _loss,
@@ -668,6 +733,6 @@ def test_wideband_train_step_on_card_launches_kernel_per_stream_and_matches_pack
     before = wideband_energy_fused.launches
     state, loss = step_fn(state, planes, labels)
     torch.cuda.synchronize()
-    assert wideband_energy_fused.launches == before + b
+    assert wideband_energy_fused.launches == before + 1
     assert state.step == 1 and loss.device.type == "cuda"
     torch.testing.assert_close(loss, want, rtol=1e-5, atol=0.0)

@@ -74,6 +74,7 @@ def _inputs() -> dict:
         "fused": rng.standard_normal((2, 16 * 128 * 64)).astype(np.float32),
         "route": rng.standard_normal((8 * 128 * 64, 2)).astype(np.float32),
         "batch": rng.standard_normal((4, 64 * 16, 2)).astype(np.float32),
+        "fused_batch": rng.standard_normal((3, 8 * 128 * 64, 2)).astype(np.float32),
     }
 
 
@@ -155,6 +156,18 @@ def _rank(inp: dict) -> dict:
         xr, xi = (torch.from_numpy(v) for v in inp["fused"])
         got = sharded_wideband_energy_fused(xr, xi, m4, cfg, precision="highest")
         out["fused"] = _gather(got, m4, ("time", 0))
+    # a batched fused block (per-stream tails, one kernel call) against one
+    # stream at a time, as planes and as a planar tuple
+    if m4 is not None:
+        fb = torch.from_numpy(inp["fused_batch"])
+        taps = torch.from_numpy(cfg.taps())
+        one = [wideband_sense(fb[i], taps, cfg, mesh=m4)["energy"] for i in range(fb.shape[0])]
+        planar = sharded_wideband_energy_fused(fb[..., 0], fb[..., 1], m4, cfg)
+        out["fused_batch"] = {
+            "batch": _gather(wideband_sense(fb, taps, cfg, mesh=m4)["energy"], m4, ("time", 1)),
+            "planar": _gather(planar, m4, ("time", 1)),
+            "one": _gather(torch.stack(one), m4, ("time", 1)),
+        }
     # the fast path's routing, planes and a planar tuple (make_wideband_fn)
     route = inp["route"]
     fast = wideband_sense(route, torch.from_numpy(cfg.taps()), cfg, mesh=m42c)
@@ -392,6 +405,23 @@ class TestPackedWidebandEnergy:
         )
         for k in ("energy", "noise"):
             np.testing.assert_allclose(got["fast"][k], np.asarray(jwant[k]), rtol=1e-5, atol=1e-7)
+
+
+class TestBatchedFusedBlock:
+    def test_batched_block_equals_streams_one_at_a_time(self, fleet):
+        """A rank's batched fused block (one kernel call with per-stream
+        tails as histories) gives each stream's bits as the stream alone,
+        interleaved and planar alike, and the one-device energies."""
+        inp, results = fleet
+        got = results[0]["fused_batch"]
+        cfg = WidebandConfig()
+        assert got["batch"].shape == (3, 8, 64)
+        np.testing.assert_array_equal(got["batch"], got["one"])
+        np.testing.assert_array_equal(got["planar"], got["batch"])
+        single = wideband_sense(torch.from_numpy(inp["fused_batch"]), cfg.taps(), cfg)["energy"]
+        np.testing.assert_allclose(got["batch"], single.numpy(), rtol=1e-6, atol=1e-9)
+        for res in results[1:4]:
+            np.testing.assert_array_equal(res["fused_batch"]["batch"], got["batch"])
 
 
 class TestBatchedWidebandFastPath:

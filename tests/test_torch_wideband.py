@@ -41,6 +41,8 @@ from cognitive_radio_network_tpu_torch.ops.fused_wideband import (
     _fir_rows,
     wideband_energy_fused,
     wideband_energy_fused_plain,
+    wideband_energy_fused_planes,
+    wideband_energy_fused_planes_plain,
 )
 from cognitive_radio_network_tpu_torch.parallel.wideband import (
     WidebandConfig,
@@ -237,23 +239,58 @@ def test_fused_any_whole_number_of_cycles(rng):
     assert empty.shape == (0, 64)
 
 
+def _strided(shape, pad):
+    """Zeros of ``shape`` whose streams (dimension 0) lie ``pad`` floats
+    further apart than their length: a stride that is not whole rows."""
+    n = shape[1] * (shape[2] if len(shape) > 2 else 1)
+    flat = torch.zeros(shape[0], n + pad)[:, :n]
+    return flat.reshape(shape) if len(shape) == 2 else flat.view(shape[0], shape[1], shape[2])
+
+
+# (cfg, wide samples per stream or a form and shape, history shape, match); the
+# first five keep their first ids
+_REJECTS = [
+    pytest.param(WidebandConfig(num_channels=16), 128, None, "M=64, P=8",
+                 id="cfg0-128-None-M=64, P=8"),
+    pytest.param(WidebandConfig(taps_per_channel=4), 128, None, "M=64, P=8",
+                 id="cfg1-128-None-M=64, P=8"),
+    pytest.param(WidebandConfig(block_len=127), 127, None, "even", id="cfg2-127-None-even"),
+    pytest.param(CFG, 1000, None, "whole sense cycles", id="cfg3-1000-None-whole sense cycles"),
+    pytest.param(CFG, 256, (8, 64), r"initial_history rows must be \(4, 128\)",
+                 id=r"cfg4-256-hist_shape4-initial_history rows must be \(4, 128\)"),
+    # a history that does not match the batch
+    pytest.param(CFG, ("planar", (2, 256 * 64)), (3, 4, 128), "leading dimensions",
+                 id="history-batch-mismatch-planar"),
+    pytest.param(CFG, ("planes", (2, 256 * 64, 2)), (3, 4, 128), "leading dimensions",
+                 id="history-batch-mismatch-planes"),
+    # interleaved planes whose last dimension is not [re, im]
+    pytest.param(CFG, ("planes", (256 * 64, 3)), None, "interleaved planes", id="last-dim-3"),
+    pytest.param(CFG, ("planes", (2, 256 * 64)), None, "interleaved planes", id="last-dim-missing"),
+    # streams at a stride that is not a whole number of rows
+    pytest.param(CFG, ("planar-strided", (2, 256 * 64)), None, "whole number of rows",
+                 id="stride-half-row-planar"),
+    pytest.param(CFG, ("planes-strided", (2, 256 * 64, 2)), None, "whole number of rows",
+                 id="stride-half-row-planes"),
+]
+
+
 @pytest.mark.parametrize("fn", [wideband_energy_fused, wideband_energy_fused_plain])
-@pytest.mark.parametrize(
-    "cfg,t,hist_shape,match",
-    [
-        (WidebandConfig(num_channels=16), 128, None, "M=64, P=8"),
-        (WidebandConfig(taps_per_channel=4), 128, None, "M=64, P=8"),
-        (WidebandConfig(block_len=127), 127, None, "even"),
-        (CFG, 1000, None, "whole sense cycles"),
-        (CFG, 256, (8, 64), r"initial_history rows must be \(4, 128\)"),
-    ],
-)
+@pytest.mark.parametrize("cfg,t,hist_shape,match", _REJECTS)
 def test_fused_rejects(fn, cfg, t, hist_shape, match):
-    x = torch.zeros(t * cfg.num_channels)
+    """Each wrapper and its plain version refuse what the kernel does not
+    take; a case with a form runs the wrapper of that form (the planar pair,
+    or ``wideband_energy_fused_planes`` and its plain version)."""
     taps = np.zeros((cfg.taps_per_channel, cfg.num_channels), np.float32)
     hist = None if hist_shape is None else (torch.zeros(hist_shape), torch.zeros(hist_shape))
+    form, shape = ("planar", (t * cfg.num_channels,)) if isinstance(t, int) else t
+    x = _strided(shape, 32) if form.endswith("strided") else torch.zeros(shape)
     with pytest.raises(ValueError, match=match):
-        fn(x, x, taps, cfg, initial_history=hist)
+        if form.startswith("planar"):
+            fn(x, x, taps, cfg, initial_history=hist)
+        else:
+            planes_fn = {wideband_energy_fused: wideband_energy_fused_planes,
+                         wideband_energy_fused_plain: wideband_energy_fused_planes_plain}[fn]
+            planes_fn(x, taps, cfg, initial_history=hist)
 
 
 def test_fused_rejects_unknown_precision():
@@ -284,7 +321,7 @@ def test_wideband_sense_matches_jax(rng, form, use_fused):
 
 @pytest.mark.parametrize("use_fused", [None, True, False])
 def test_wideband_sense_batched_matches_jax(rng, use_fused):
-    """A batch of streams, through the fused wrapper stream by stream (None,
+    """A batch of streams, through the fused wrapper in one call (None,
     True) or through the packed path (False), against the JAX package's
     batched packed path."""
     b, t = 3, 256
