@@ -13,19 +13,34 @@ one line; any failure raises, and the exit code is then non-zero.
 2. kernel vs plain: ``fused_sense_ct`` against ``fused_sense_ct_plain`` on
    the same card (TF32 off) at C=4096 and C=5 cycles (f32 input), at the
    predictive engine's C=1 on two views of one (2, 10, 512) upload, and with
-   bf16 input at ``precision="default"``.
+   bf16 input at ``precision="default"``; the classify form
+   (``fused_sense_classify``, the reference weights, log1p features and a
+   seeded 4-7-3 network) at the same shapes: spectrum and features
+   ``torch.equal`` to ``fused_sense_ct``'s, outputs within atol 1e-5 of the
+   plain MLP on its own features and atol 2e-3 (the golden gate's) of
+   ``fused_sense_classify_plain``, decisions equal to the rule on its
+   outputs; the trace kernel (``sense_trace``) ``torch.equal`` to its plain
+   version on random decisions at C=4096.
 3. golden gate: 16 cycles of a synthesized PU scene through
-   ``make_sense_fn(SenseConfig())``, held to ``tests/golden_reference.py``.
+   ``make_sense_fn(SenseConfig())`` (one classify launch), held to
+   ``tests/golden_reference.py``.
 4. main path: a Markov PU trace drives ``synthesize_scene`` and
-   ``sense_classify_trace`` over 4096 cycles in one dispatch; the kernel's
-   launch count must rise, decisions must track the PU channel and the tx
-   trace must follow the retune policy.
+   ``sense_classify_trace`` over 4096 cycles in one dispatch: exactly one
+   classify launch and one trace launch; decisions and the trace
+   ``torch.equal`` to ``fused_sense_classify_plain``'s on the card, outputs
+   within its atol 2e-3; decisions must track the PU channel and the tx trace
+   must follow the retune policy.
 5. CLI: a 4096-cycle capture through ``python -m
    cognitive_radio_network_tpu_torch sense`` at 256 cycles per dispatch,
    ingested by the native prefetcher.
 6. times: median of 3 for the kernel and the plain version at C=4096 and
    C=256, with CUDA events, and for the kernel on bf16 input at C=4096; GB/s
-   read and the share of 3.35 TB/s beside each bound.
+   read and the share of 3.35 TB/s beside each bound; at C=4096, f32 and
+   bf16, the classify form beside ``fused_sense_ct`` in turns (ct, classify,
+   classify, ct) by CUDA events and on the card (the profiler's durations
+   over 10 alternations of 10 launches: ``profile_sense.measure_kernels``),
+   its plain version; the trace kernel and its plain version at C=4096; the
+   wrappers' host time at C=1.
 7. extract, kernel vs plain: ``extract_window_sets`` against
    ``extract_window_sets_plain`` (``torch.equal``, into its own windows and
    into the caller's, ``out=``) on the OFDM link's block of N=1,265,664
@@ -136,8 +151,10 @@ one line; any failure raises, and the exit code is then non-zero.
    ``CE_TX_CHANNEL_X -c 1`` variant (the SU decides 1 and retunes to 835 MHz;
    its decisions equal the CPU run's, its MLP outputs within atol 2e-3);
    a profiler trace of one classify call, and of the sense path at C=4096,
-   C=256 and C=1 (device operations, busy time, the kernel's and the
-   epilogue's share, idle share).
+   C=256 and C=1 with and without the trace (device operations, busy time,
+   the sense kernels' share, idle share): a ``make_sense_fn`` call on planes
+   and parameters on the card must make 1 device operation, 2 with the
+   trace.
 21. the two-node link of phase 18 distributed (``NetController(...,
    device="cuda", transport="native")``: a controller here, one node process
    per node on the card) for 0.25 s: the summary equal to phase 18's
@@ -198,7 +215,11 @@ path (kernels 1 and 3 also on the training paths, kernels 2 and 3 on the
 sharded paths of phases 27-29 as ``sharded_launches``), error, times and bound (the least time the card could take: bytes moved
 over 3.35 TB/s or the float32 operations the function needs, with an FFT for
 a DFT, over 67 TFLOP/s, whichever is larger); the wideband entry also has
-the (4, 65,536) batch's ``batch_ms`` and ``batch_bound_ms``.
+the (4, 65,536) batch's ``batch_ms`` and ``batch_bound_ms``; the sense
+entry the classify form's ``tail_ms`` (f32 and bf16, C=4096) and
+``tail_max_abs_err``, and ``path_calls``: device operations and ms of a
+``make_sense_fn`` call at C = 4096, 256 and 1, with and without the trace;
+the trace kernel has an entry of its own (``sense_trace``).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -216,6 +237,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "cognitive_radio_network_tpu_torch/csrc/fused_sense_ct.cu"
 KERNEL_REPLACES = "cognitive_radio_network_tpu/ops/fused_sense_ct.py:51"
+# no TPU kernel: the lax.scan of the reference's sense_classify_trace
+TRACE_REPLACES = "cognitive_radio_network_tpu/models/sense.py:158"
 EXTRACT_SOURCE = "cognitive_radio_network_tpu_torch/csrc/extract_windows.cu"
 EXTRACT_REPLACES = "cognitive_radio_network_tpu/ops/extract.py:46"
 CYCLES = 4096  # cycles per dispatch of the reference's bench (bench.py:132)
@@ -288,7 +311,7 @@ def reset_counts() -> None:
     from cognitive_radio_network_tpu_torch import ops
 
     for fn in (ops.fused_sense_ct, ops.extract_windows, ops.wideband_energy_fused,
-               ops.fused_band_features, ops.resolve_candidates):
+               ops.fused_band_features, ops.resolve_candidates, ops.sense_trace):
         fn.launches = 0
 
 
@@ -1712,6 +1735,7 @@ def scenario_phases(smi: str) -> dict:
 
     from cognitive_radio_network_tpu_torch import ops
     from cognitive_radio_network_tpu_torch.models import SenseConfig, make_sense_fn
+    from cognitive_radio_network_tpu_torch.profile_sense import profiled as sense_profiled
     from cognitive_radio_network_tpu_torch.runtime import ScenarioRuntime, load_scenario
     from cognitive_radio_network_tpu_torch.signal.mlp import reference_weights
     from cognitive_radio_network_tpu_torch.signal.msequence import msequence_bytes
@@ -1858,27 +1882,34 @@ def scenario_phases(smi: str) -> dict:
         eng.buffers = list(buffers)
         eng._classify_and_act()
 
-    wall_ms, n_ops, busy, kern = profiled(classify, "classify", "fused_sense_ct_kernel")
-    phase("sense-profile", f"one CEPredictiveNode classify (C=1: one upload, kernel, MLP, "
-          f"decision, one .item()): {wall_ms:.4f} ms by host clock, {n_ops:.1f} device "
-          f"operations, {busy:.1f} us busy ({kern:.1f} us the kernel), device idle "
-          f"{1 - busy / (wall_ms * 1e3):.1%}; {smi}")
+    r = sense_profiled(classify, "classify")
+    launches["path_calls"] = {"engine_classify": r}
+    phase("sense-profile", f"one CEPredictiveNode classify (C=1: one upload, the classify kernel, "
+          f"one .item()): {r['ms']:.4f} ms by host clock, {r['ops']} device operations, "
+          f"{r['busy_us']:.1f} us busy ({r['kernel_us']:.1f} us the kernel), device idle "
+          f"{r['idle']:.1%} (the profiler kept {r['kept']} calls); {smi}")
 
-    # the sense path at C=4096, C=256 and the engine's C=1, device-resident input
+    # the sense path at C=4096, C=256 and the engine's C=1, device-resident
+    # input and parameters: one device operation a call, two with the trace
     cfg = SenseConfig()
-    fn = make_sense_fn(cfg)
+    fn, fn_trace = make_sense_fn(cfg), make_sense_fn(cfg, with_trace=True)
     params = reference_weights(device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(3)
     for c in (CYCLES, CLI_CYCLES, 1):
         xr = torch.randn(c * cfg.averaging, cfg.fft_length, generator=gen, device="cuda")
         xi = torch.randn(c * cfg.averaging, cfg.fft_length, generator=gen, device="cuda")
-        wall_ms, n_ops, busy, kern = profiled(lambda: fn((xr, xi), params), f"sense_c{c}",
-                                              "fused_sense_ct_kernel")
-        phase("sense-profile", f"make_sense_fn C={c}: {wall_ms:.4f} ms per synchronized call by "
-              f"host clock, {n_ops:.1f} device operations, {busy:.1f} us busy, of which the "
-              f"kernel {kern:.1f} us and the epilogue {busy - kern:.1f} us "
-              f"({(busy - kern) / busy:.1%} of busy), device idle "
-              f"{1 - busy / (wall_ms * 1e3):.1%}; {smi}")
+        for label, call, most in ((f"sense_c{c}", lambda: fn((xr, xi), params), 1),
+                                  (f"sense_trace_c{c}", lambda: fn_trace((xr, xi), params, 833e6), 2)):
+            r = sense_profiled(call, label)
+            launches["path_calls"][label] = r
+            phase("sense-profile", f"make_sense_fn{' with_trace' if most == 2 else ''} C={c}: "
+                  f"{r['ms']:.4f} ms per synchronized call by host clock, {r['ops']} device "
+                  f"operations (at most {most}), {r['busy_us']:.1f} us busy, of which the sense "
+                  f"kernels {r['kernel_us']:.1f} us ({r['kernel_us'] / r['busy_us']:.1%} of busy), "
+                  f"device idle {r['idle']:.1%} (the profiler kept {r['kept']} calls); {smi}")
+            if r["ops"] > most:
+                raise AssertionError(f"{label}: {r['ops']} device operations a call, "
+                                     f"more than {most}")
     return launches
 
 
@@ -2559,10 +2590,16 @@ def main() -> int:
     from cognitive_radio_network_tpu_torch.ops import _build
     from cognitive_radio_network_tpu_torch.ops.extract import extract_windows
     from cognitive_radio_network_tpu_torch.ops.fused_sense_ct import (
+        fused_sense_classify,
+        fused_sense_classify_plain,
         fused_sense_ct,
         fused_sense_ct_plain,
+        sense_trace,
+        sense_trace_plain,
     )
-    from cognitive_radio_network_tpu_torch.signal.mlp import reference_weights
+    from cognitive_radio_network_tpu_torch.signal.detector import occupancy_decision
+    from cognitive_radio_network_tpu_torch.profile_sense import measure_kernels
+    from cognitive_radio_network_tpu_torch.signal.mlp import init_mlp, mlp_apply, reference_weights
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2637,6 +2674,49 @@ def main() -> int:
           f"vs f32 (rtol 2e-2)")
     del xr, xi
 
+    # the classify form: the same walk with the MLP and the decision per cycle
+    ref_w = tuple(p.detach() for p in reference_weights(device=dev).parameters())
+    seeded = init_mlp(torch.Generator(device=dev).manual_seed(4), 4, 7, 3)
+    with torch.no_grad():
+        seeded.b1.uniform_(-1, 1, generator=gen)
+        seeded.b2.uniform_(-1, 1, generator=gen)
+    seeded_w = tuple(p.detach() for p in seeded.parameters())
+    tail_err = 0.0
+    for c, make in ((CYCLES, lambda: planes(CYCLES)), (5, lambda: planes(5)), (1, engine_planes)):
+        xr, xi = make()
+        for what, w, log1p, thr, scale in (("reference weights", ref_w, False, 0.8, 1.0),
+                                           ("seeded 4-7-3 on log1p", seeded_w, True, 0.5, 0.01)):
+            x = (scale * xr, scale * xi)
+            avg_k, feats_k, outs_k, dec_k = fused_sense_classify(*x, *w, log1p=log1p, threshold=thr)
+            avg_c, feats_c = fused_sense_ct(*x)
+            plain = fused_sense_classify_plain(*x, *w, log1p=log1p, threshold=thr)
+            own = mlp_apply(torch.log1p(feats_k) if log1p else feats_k, *w)
+            torch.cuda.synchronize()
+            if not (torch.equal(avg_k, avg_c) and torch.equal(feats_k, feats_c)):
+                raise AssertionError(f"classify C={c}: spectrum or features differ from "
+                                     f"fused_sense_ct's")
+            torch.testing.assert_close(outs_k, own, rtol=0.0, atol=1e-5)
+            torch.testing.assert_close(outs_k, plain[2], rtol=0.0, atol=2e-3)
+            if not torch.equal(dec_k, occupancy_decision(outs_k, thr)):
+                raise AssertionError(f"classify C={c}: decisions differ from the rule on its outputs")
+            near = ((plain[2] - thr).abs() < 2e-3).any(dim=1)
+            if not torch.equal(dec_k[~near], plain[3][~near]):
+                raise AssertionError(f"classify C={c}: decisions differ from the plain chain's")
+            e_own = (outs_k - own).abs().max().item()
+            e_plain = (outs_k - plain[2]).abs().max().item()
+            tail_err = max(tail_err, e_plain)
+            phase("kernel-vs-plain", f"classify f32 C={c}, {what}, threshold {thr}: avg and feats "
+                  f"torch.equal to fused_sense_ct's; outputs max abs err {e_own:.3e} vs the MLP on "
+                  f"its features (atol 1e-5), {e_plain:.3e} vs the plain chain (atol 2e-3); "
+                  f"decisions equal ({int(near.sum())} cycles within 2e-3 of the threshold)")
+    rand_dec = torch.randint(0, 4, (CYCLES,), generator=gen, device=dev, dtype=torch.int32)
+    rand_dec[torch.rand(CYCLES, generator=gen, device=dev) < 0.5] = 0
+    for tx0 in (833e6, torch.tensor(838e6, device=dev)):
+        if not torch.equal(sense_trace(rand_dec, tx0), sense_trace_plain(rand_dec, tx0)):
+            raise AssertionError(f"sense_trace differs from its plain version (tx0 {tx0!r})")
+    phase("kernel-vs-plain", f"sense_trace C={CYCLES} on random decisions, tx0 a float and a 0-d "
+          f"tensor on the card: torch.equal to the plain version")
+
     # 3. golden gate (port of tests/tpu_gates.py::gate_fused_sense)
     params = reference_weights(device=dev)
     fn = make_sense_fn(cfg)
@@ -2651,9 +2731,12 @@ def main() -> int:
     )
     g_np = g_planes.cpu().numpy().reshape(gc, a, n, 2)
     # numpy planes: the function moves host input to the card, its default device
+    reset_counts()
     g_out = fn((g_np[..., 0].reshape(-1, n).copy(), g_np[..., 1].reshape(-1, n).copy()), params)
     if g_out["decision"].device.type != "cuda":
         raise AssertionError("make_sense_fn sensed host input off the card")
+    if fused_sense_ct.launches != 1:
+        raise AssertionError(f"the golden gate made {fused_sense_ct.launches} classify launches")
     g_out = {k: v.cpu().numpy() for k, v in g_out.items()}
     feats_ref, outs_ref, decs_ref = gold.sense_classify_reference(g_np[..., 0] + 1j * g_np[..., 1])
     np.testing.assert_allclose(g_out["features"], feats_ref, rtol=5e-3)
@@ -2676,9 +2759,18 @@ def main() -> int:
     res, freqs = sense_classify_trace(planar, params, 833e6, cfg)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = fused_sense_ct.launches
-    if launches < 1:
-        raise AssertionError("the main path did not launch the fused_sense_ct kernel")
+    launches, trace_launches = fused_sense_ct.launches, sense_trace.launches
+    if (launches, trace_launches) != (1, 1):
+        raise AssertionError(f"the main path made {launches} classify and {trace_launches} trace "
+                             f"launches, not 1 and 1")
+    plain = fused_sense_classify_plain(*planar, *(p.detach() for p in params.parameters()),
+                                       tx0=833e6)
+    torch.cuda.synchronize()
+    if not (torch.equal(res["decision"], plain[3]) and torch.equal(freqs, plain[4])):
+        raise AssertionError("main path: decisions or trace differ from fused_sense_classify_plain")
+    torch.testing.assert_close(res["outputs"], plain[2], rtol=0.0, atol=2e-3)
+    main_err = (res["outputs"] - plain[2]).abs().max().item()
+    tail_err = max(tail_err, main_err)
     dec = res["decision"].cpu().numpy()
     for key, shape in (("avg_spectrum", (CYCLES, n)), ("features", (CYCLES, 4)),
                        ("outputs", (CYCLES, 3)), ("decision", (CYCLES,))):
@@ -2696,7 +2788,9 @@ def main() -> int:
     if not np.array_equal(freqs.cpu().numpy(), np.asarray(want, np.float32)):
         raise AssertionError("tx trace breaks the 1->835, 2->833, 3->835 MHz policy")
     phase("main-path", f"{CYCLES} cycles ({CYCLES * cfg.samples_per_cycle / 1e6:.1f} MSamples) "
-          f"in {main_s * 1e3:.1f} ms host time; kernel launches {launches}; decision == PU+1 on "
+          f"in {main_s * 1e3:.1f} ms host time; classify launches {launches}, trace launches "
+          f"{trace_launches}; decisions and trace torch.equal to fused_sense_classify_plain's, "
+          f"outputs max abs err {main_err:.3e} (atol 2e-3); decision == PU+1 on "
           f"{hit:.4f}; tx trace follows policy (final {want[-1] / 1e6:.0f} MHz); extract "
           f"launches {extract_windows.launches}")
 
@@ -2730,7 +2824,7 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
 
     # 6. times
-    times = {}
+    times, tail = {}, {}
     for c in (CYCLES, CLI_CYCLES):
         bufs = max(1, -(-64 * 2**20 // (c * a * n * 8)))  # > 50 MB L2 in all
         inputs = [planes(c) for _ in range(bufs)]
@@ -2770,6 +2864,20 @@ def main() -> int:
             phase("time", f"C={c} bf16 input: kernel {h_ms:.4f} ms/dispatch ({msps / h_ms:.0f} "
                   f"MS/s, {gbs:.0f} GB/s read, {gbs / 3350:.1%} of 3.35 TB/s; bound {b_ms:.4f} ms "
                   f"by {by}, so {h_ms / b_ms:.2f}x its bound), median of 3; {smi}")
+
+            # the classify form beside fused_sense_ct (CUDA events in turns, and
+            # the profiler's durations over alternations), its plain version,
+            # the trace kernel, and the wrappers' host time at C=1
+            sk = {"kernels": {}}
+            measure_kernels(sk, dev, params, torch.Generator(device=dev).manual_seed(5), smi)
+            sk = sk["kernels"]
+            tail.update(
+                f32=statistics.median(sk["f32"]["events_ms"]["fused_sense_classify"]),
+                bf16=statistics.median(sk["bf16"]["events_ms"]["fused_sense_classify"]),
+                plain=sk["classify_plain_ms"], trace=sk["sense_trace"]["ms"],
+                trace_plain=sk["sense_trace"]["plain_ms"],
+                on_card={k: sk[k]["on_card_ms"] for k in ("f32", "bf16")},
+                trace_on_card=sk["sense_trace"]["on_card_ms"])
             del half
         del inputs
 
@@ -2797,10 +2905,33 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # FFT + magnitude + mean + band sums: no single PyTorch call
+        "tail_ms": tail["f32"],
+        "tail_bf16_ms": tail["bf16"],
+        "tail_plain_ms": tail["plain"],
+        # the profiler's kernel durations, the two forms alternating
+        "on_card_ms": {k: v["fused_sense_ct"] for k, v in tail["on_card"].items()},
+        "tail_on_card_ms": {k: v["fused_sense_classify"] for k, v in tail["on_card"].items()},
+        "tail_max_abs_err": tail_err,
+        "path_calls": {k: {"device_ops": v["ops"], "ms": v["ms"], "busy_us": v["busy_us"]}
+                       for k, v in scn["path_calls"].items()},
         "scenario_launches": {"predictive_model.cfg": scn["predictive"],
                               "predictive_model.cfg -d, SU node": dist["predictive"]},
         "training_launches": {"make_dataset": train["make_dataset"],
                               "evaluation": train["evaluation"]},
+    }, {
+        "name": "sense_trace",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": TRACE_REPLACES,
+        "launches": trace_launches,
+        "max_abs_err": 0.0,  # held torch.equal to its plain version (phases 2, 4)
+        "ms": tail["trace"],
+        "on_card_ms": tail["trace_on_card"],
+        "plain_ms": tail["trace_plain"],
+        # C int32 decisions read and C float32 frequencies written; no arithmetic to speak of
+        "bound_ms": bound(CYCLES * 8, 0)[0],
+        "bound_by": "bytes",
+        "library_ms": None,  # a scan of "the last non-zero": no single PyTorch call
     }, extract_entry, *new_entries, resolve_entry]
     new_entries[0]["training_launches"] = {"train_steps": train["train_steps"]}
     new_entries[0]["sharded_launches"] = sharded["wideband"]

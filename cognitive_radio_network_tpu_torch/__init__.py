@@ -20,7 +20,9 @@ signal    IQ layouts, DFT spectra, band features, the sigmoid MLP, detector,
           filter design, m-sequences, the polyphase channelizer, rational
           resampling
 ops       ``fused_sense_ct``: 512-point FFT -> |X| -> mean over buffers ->
-          band sums, squared; ``extract_windows``: K windows of two IQ
+          band sums, squared; ``fused_sense_classify``: the same kernel with
+          the MLP and the decision per cycle, and ``sense_trace`` (the retune
+          trace); ``extract_windows``: K windows of two IQ
           planes at dynamic offsets; ``wideband_energy_fused``: polyphase
           FIR -> 64-point DFT -> power -> mean per sense cycle;
           ``fused_band_features``: the sense features alone, no spectrum

@@ -29,6 +29,14 @@
 // threads finish the cycle in sense_epilogue.cuh: thread t owns bins t,
 // t + 128, t + 256, t + 384.  No atomics: results are the same from run to
 // run.  The next row's loads are in flight while the current row computes.
+//
+// A tail (sense_classify.cuh: the MLP and decision) finishes each
+// cycle after its features on one warp, the one that owns the last row class
+// in the next cycle.  That class is the shortest when A is not a multiple of 4
+// (at A = 10 classes of 3, 3, 2, 2 rows), so the tail runs in the slack that
+// warp has before the next cycle's block meeting, off the longest warp's path.
+// The tail reads the band partial sums before that meeting, which is the
+// first point at which they are written again.
 
 #pragma once
 
@@ -150,6 +158,16 @@ __device__ __forceinline__ void fft16(float (&re)[kFftR], float (&im)[kFftR]) {
   }
 }
 
+// The walk's default tail: nothing after a cycle's features.  A tail's
+// stage() runs once per block, after the first row's loads are issued (a
+// tail that copies its tables to shared memory waits for them there, not
+// before the loads); operator() once per cycle.
+struct NoTail {
+  static constexpr bool kActive = false;
+  __device__ __forceinline__ void stage() const {}
+  __device__ __forceinline__ void operator()(long long, int, const float (*)[kSenseBands]) const {}
+};
+
 // A warp's walk over its rows: in cycle number `it` of its block the warp
 // owns class (warp + it) mod 4, rows a = class, class + 4, ... of that cycle.
 struct RowCursor {
@@ -187,13 +205,17 @@ __device__ __forceinline__ void load_row(const T* __restrict__ xr, const T* __re
 // it once.  xr, xi (cycles * averaging, 512) rows of T (float or a bf16's
 // bits); tw (2, 512) cos and sin of -2*pi*k/512; band (512, 4); feats
 // (cycles, 4).  With kWriteAvg the averaged spectrum goes to avg (cycles,
-// 512); without it avg is not read and nothing but feats is written.
-template <typename T, bool kWriteAvg>
+// 512); without it avg is not read and nothing but feats is written.  An
+// active Tail is called as tail(cycle, lane, s_red) by every lane of one warp
+// once the cycle's features are reduced (see the note at the top), and its
+// stage() by every thread once.
+template <typename T, bool kWriteAvg, typename Tail = NoTail>
 __device__ __forceinline__ void sense_cycles(const T* __restrict__ xr, const T* __restrict__ xi,
                                              const float* __restrict__ tw,
                                              const float* __restrict__ band,
                                              float* __restrict__ avg, float* __restrict__ feats,
-                                             int cycles, int averaging) {
+                                             int cycles, int averaging,
+                                             const Tail& tail = Tail()) {
   __shared__ float2 s_x[kFftWarps][kFftR * kFftPitch];  // one exchange tile per warp
   __shared__ float s_class[kFftWarps][kSenseN];  // a cycle's |X| sums, one row per class
   __shared__ float s_red[kFftWarps][kSenseBands];
@@ -221,6 +243,7 @@ __device__ __forceinline__ void sense_cycles(const T* __restrict__ xr, const T* 
   next_row(ahead, warp, kFftWarps, cycles, averaging, stride);
   float nr[kFftR], ni[kFftR];
   if (ahead.cycle < cycles) load_row(xr, xi, ahead, averaging, lane, nr, ni);
+  tail.stage();  // the first block meeting below falls before the tail's first call
 
   int it = 0;
   for (long long cycle = blockIdx.x; cycle < cycles; cycle += stride, ++it) {
@@ -276,6 +299,11 @@ __device__ __forceinline__ void sense_cycles(const T* __restrict__ xr, const T* 
     // next cycle may write s_class again
     sense_epilogue(sum, averaging, band, kWriteAvg ? avg + cycle * kSenseN : nullptr,
                    feats + cycle * kSenseBands, s_red);
+    // the warp whose class in the next cycle is the last one: (warp + it + 1)
+    // mod 4 == 3
+    if (Tail::kActive && warp == ((kFftWarps - 2 - it) & (kFftWarps - 1))) {
+      tail(cycle, lane, s_red);
+    }
   }
 }
 

@@ -11,8 +11,9 @@ Sense->classify loop of cognitive_engines/CE_Predictive_Node/CE_Predictive_Node.
 
 Port of ``cognitive_radio_network_tpu/engines/predictive_node.py``: steps
 (3)-(4) are one ``models.sense.sense_classify`` call per completed averaging
-cycle on the radio's device, where the FFT, the magnitude average and the
-band features are one launch of the ``fused_sense_ct`` kernel (on the card).
+cycle on the radio's device, where the FFT, the magnitude average, the band
+features, the MLP and the decision are one launch of the classify form of the
+sense kernel (``fused_sense_classify``, on the card).
 The MLP is placed on that device once, at construction; the ten buffers go
 up in one copy and the decision comes back in one read, which the engine
 needs to act on.

@@ -7,15 +7,17 @@ as one batched pass over C cycles:
 
     IQ (C cycles x A buffers x N samples)
       -> 512-point FFT, |X|, mean over A, band sums squared
-                             [ops.fused_sense_ct: CUDA kernel on the card]
       -> 4-5-3 sigmoid MLP   [signal.mlp]
       -> occupancy decision + channel policy   [signal.detector]
 
-Decisions per cycle are independent; only the tx-frequency trace carries
-state from cycle to cycle (the "else: keep sensing" branch).  The reference
-runs it as a ``lax.scan``; here it is one vectorized pass that carries the
-last non-zero decision forward with ``cummax`` over cycle indices, so no
-Python loop runs per cycle.
+On the fused path (CUDA tensors by default) the whole chain is one launch of
+the classify kernel (``ops.fused_sense_ct.fused_sense_classify``), as the
+reference compiles it into one jitted program.  Decisions per cycle are
+independent; only the tx-frequency trace carries state from cycle to cycle
+(the "else: keep sensing" branch).  The reference runs it as a ``lax.scan``;
+on the fused path it is a one-block scan kernel (``sense_trace``), otherwise
+one vectorized pass that carries the last non-zero decision forward with
+``cummax`` over cycle indices, so no Python loop runs per cycle.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import functools
 
 import torch
 
-from cognitive_radio_network_tpu_torch.ops.fused_sense_ct import fused_sense_ct
+from cognitive_radio_network_tpu_torch.ops.fused_sense_ct import fused_sense_classify
 from cognitive_radio_network_tpu_torch.signal import bands as bands_mod
 from cognitive_radio_network_tpu_torch.signal import detector as det
 from cognitive_radio_network_tpu_torch.signal.fft import averaged_magnitude_spectrum
@@ -52,9 +54,10 @@ class SenseConfig:
     # "ct_matmul": Cooley-Tukey N1 x 128 factored DFT (default);
     # "dft_matmul": dense (N, N) DFT matmul; "xla": torch.fft.
     fft_mode: str = "ct_matmul"
-    # CUDA tensors with ct_matmul and N=512 go through the fused CUDA kernel
-    # (ops/fused_sense_ct.py).  None = auto (CUDA tensors only); False
-    # forces the plain graph.
+    # CUDA tensors with ct_matmul and N=512 go through the fused CUDA kernel,
+    # features to decision in one launch (ops/fused_sense_ct.py::
+    # fused_sense_classify).  None = auto (CUDA tensors only); False forces
+    # the plain graph.
     use_fused_kernel: bool | None = None
     # input transform applied to band features before the MLP: "none" (the
     # reference's raw squared sums, matching its shipped weights) or "log1p"
@@ -73,16 +76,14 @@ def _as_tensor(x) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
 
 
-@torch.no_grad()
-def sense_classify(iq, params: OccupancyMLP, cfg: SenseConfig = SenseConfig()):
-    """Batched sense->classify over C cycles.
+_KEYS = ("avg_spectrum", "features", "outputs", "decision")
+# the vectorized trace of the plain graph (signal/detector.py)
+_tx_freq_trace = det.tx_freq_trace
 
-    iq: planar tuple (xr, xi), each (C*A, N) or (C, A, N) (the kernel's
-    layout); complex (C, A, N); or interleaved float32 planes (C, A, N, 2);
-    or any flat shape reshapeable to them.  Returns a dict of per-cycle
-    tensors: avg_spectrum (C, N), features (C, 4), outputs (C, 3),
-    decision (C,) int32.
-    """
+
+@torch.no_grad()
+def _sense(iq, params: OccupancyMLP, cfg: SenseConfig, tx0=None):
+    """The results dict, and with ``tx0`` the trace (else None)."""
     n, a = cfg.fft_length, cfg.averaging
     if isinstance(iq, (tuple, list)):  # planar (xr, xi): the kernel's layout
         blocks = tuple(_as_tensor(v).float().reshape(-1, n) for v in iq)
@@ -96,45 +97,45 @@ def sense_classify(iq, params: OccupancyMLP, cfg: SenseConfig = SenseConfig()):
         use_fused = cfg.fft_mode == "ct_matmul" and n == 512 and on_cuda(first)
     if use_fused:
         xr, xi = blocks if isinstance(blocks, tuple) else split_iq(blocks)
-        avg, feats = fused_sense_ct(
+        out = fused_sense_classify(
             xr.contiguous(),
             xi.contiguous(),
+            params.w1,
+            params.b1,
+            params.w2,
+            params.b2,
             averaging=a,
             bands=cfg.bands,
+            threshold=cfg.threshold,
+            log1p=cfg.feature_transform == "log1p",
+            tx0=tx0,
+            channels_hz=cfg.channels_hz,
             precision=cfg.precision,
         )
-    else:
-        if isinstance(blocks, tuple):
-            blocks = tuple(v.reshape(-1, a, n) for v in blocks)
-        avg = averaged_magnitude_spectrum(
-            blocks, averaging=a, mode=cfg.fft_mode, precision=cfg.precision
-        )
-        feats = bands_mod.band_features(avg, cfg.bands)
+        return dict(zip(_KEYS, out)), (None if tx0 is None else out[4])
+    if isinstance(blocks, tuple):
+        blocks = tuple(v.reshape(-1, a, n) for v in blocks)
+    avg = averaged_magnitude_spectrum(blocks, averaging=a, mode=cfg.fft_mode, precision=cfg.precision)
+    feats = bands_mod.band_features(avg, cfg.bands)
     mlp_in = torch.log1p(feats) if cfg.feature_transform == "log1p" else feats
     outs = params(mlp_in)
     decision = det.occupancy_decision(outs, cfg.threshold)
-    return {
-        "avg_spectrum": avg,
-        "features": feats,
-        "outputs": outs,
-        "decision": decision,
-    }
+    res = dict(zip(_KEYS, (avg, feats, outs, decision)))
+    return res, (None if tx0 is None else _tx_freq_trace(decision, tx0, cfg.channels_hz))
 
 
-def _tx_freq_trace(
-    decision: torch.Tensor, initial_tx_freq_hz, channels_hz: tuple[float, float, float]
-) -> torch.Tensor:
-    """tx_freq[c] = next_tx_channel applied over decision[0..c], vectorized.
+def sense_classify(iq, params: OccupancyMLP, cfg: SenseConfig = SenseConfig()):
+    """Batched sense->classify over C cycles.
 
-    Only the last non-zero decision at or before c matters (0 keeps the
-    frequency), so find its index with a running max over the indices of
-    the non-zero decisions; cycles before any such decision keep the
-    initial frequency.
+    iq: planar tuple (xr, xi), each (C*A, N) or (C, A, N) (the kernel's
+    layout); complex (C, A, N); or interleaved float32 planes (C, A, N, 2);
+    or any flat shape reshapeable to them.  Returns a dict of per-cycle
+    tensors: avg_spectrum (C, N), features (C, 4), outputs (C, 3),
+    decision (C,) int32.  On the fused path ``params`` must be float32 with
+    at most ``ops.fused_sense_ct.MAX_HIDDEN`` hidden units; its tensors are
+    read and its ``forward`` is not called.
     """
-    idx = torch.arange(decision.shape[0], device=decision.device)
-    last = torch.where(decision != det.DECISION_ALL_BUSY, idx, -1).cummax(dim=0).values
-    held = torch.where(last >= 0, decision[last.clamp(min=0)], det.DECISION_ALL_BUSY)
-    return det.next_tx_channel(held, initial_tx_freq_hz, channels_hz)
+    return _sense(iq, params, cfg)[0]
 
 
 def sense_classify_trace(
@@ -148,9 +149,10 @@ def sense_classify_trace(
     Returns (results dict, tx_freq trace (C,) float32): tx_freq[c] is the tx
     center frequency after cycle c's decision, with "all busy" keeping the
     previous frequency (CE_Predictive_Node.cpp:245-261).
+    ``initial_tx_freq_hz`` is a number or a 0-d tensor; on the fused path a
+    0-d tensor on the card is read there, not by the host.
     """
-    res = sense_classify(iq, params, cfg)
-    return res, _tx_freq_trace(res["decision"], initial_tx_freq_hz, cfg.channels_hz)
+    return _sense(iq, params, cfg, initial_tx_freq_hz)
 
 
 @functools.lru_cache(maxsize=64)
@@ -175,7 +177,7 @@ def make_sense_fn(
     def placed(iq, params: OccupancyMLP):
         iq = tuple(place(v) for v in iq) if isinstance(iq, (tuple, list)) else place(iq)
         target = (iq[0] if isinstance(iq, tuple) else iq).device  # "cuda" alone: the current card
-        if next(params.parameters()).device != target:
+        if params.w1.device != target:
             params = copy.deepcopy(params).to(target)
         return iq, params
 

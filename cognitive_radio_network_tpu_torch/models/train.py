@@ -6,7 +6,7 @@ CE_Predictive_Node.cpp:74-121).  Here training is a pipeline on one device:
 
     IQ scenes (synthetic env)
       -> fused sense front-end (FFT + band features)   [models.sense: one
-                                                        fused_sense_ct launch
+                                                        sense kernel launch
                                                         for the whole dataset]
       -> sigmoid MLP, per-channel BCE                  [signal.mlp]
       -> Adam with optax.adam's defaults and update rule

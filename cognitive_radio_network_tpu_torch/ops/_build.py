@@ -46,6 +46,12 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     # xr, xi, is_bf16, tw, band, avg, feats, cycles, averaging, stream
     "crn_fused_sense_ct": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _P),
+    # xr, xi, is_bf16, tw, band, w1, b1, w2, b2, hidden, log1p, threshold, avg,
+    # feats, outputs, decision, cycles, averaging, stream
+    "crn_fused_sense_classify": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _I,
+                                 _I, _P),
+    # decision, cycles, tx0_ptr (null: by value), tx0, ch_a, ch_b, trace, stream
+    "crn_sense_trace": (_P, _L, _P, _F, _F, _F, _P, _P),
     # rr, ri, offsets, offsets_i32, n, k, count, then (out_r, out_i, wlen) for
     # each of 4 sets (the unused ones null and 0), stream
     "crn_extract_window_sets": (_P, _P, _P, _I, _L, _I, _I, *(_P, _P, _I) * 4, _P),

@@ -21,6 +21,7 @@ __all__ = [
     "SU_CHANNELS_HZ",
     "occupancy_decision",
     "next_tx_channel",
+    "tx_freq_trace",
 ]
 
 # Secondary-user channel plan (CE_Predictive_Node.hpp:55-57).
@@ -66,3 +67,22 @@ def next_tx_channel(
         dim=-1,
     )
     return torch.take_along_dim(table, decision.long()[..., None], dim=-1)[..., 0]
+
+
+def tx_freq_trace(
+    decision: torch.Tensor,
+    initial_tx_freq_hz,
+    channels_hz: tuple[float, float, float] = SU_CHANNELS_HZ,
+) -> torch.Tensor:
+    """tx_freq[c] = next_tx_channel applied over decision[0..c], vectorized
+    (the reference's ``lax.scan``, CE_Predictive_Node.cpp:245-261).
+
+    Only the last non-zero decision at or before c matters (0 keeps the
+    frequency), so find its index with a running max over the indices of
+    the non-zero decisions; cycles before any such decision keep the
+    initial frequency.
+    """
+    idx = torch.arange(decision.shape[0], device=decision.device)
+    last = torch.where(decision != DECISION_ALL_BUSY, idx, -1).cummax(dim=0).values
+    held = torch.where(last >= 0, decision[last.clamp(min=0)], DECISION_ALL_BUSY)
+    return next_tx_channel(held, initial_tx_freq_hz, channels_hz)

@@ -22,7 +22,14 @@ from torch import nn
 
 from cognitive_radio_network_tpu_torch.utils.device import full_f32
 
-__all__ = ["OccupancyMLP", "reference_weights", "params_from_numpy", "mlp_forward", "init_mlp"]
+__all__ = [
+    "OccupancyMLP",
+    "reference_weights",
+    "params_from_numpy",
+    "mlp_apply",
+    "mlp_forward",
+    "init_mlp",
+]
 
 # WeightIH[i][j] transposed into (input, hidden): rows i=1..4, cols j=1..5.
 _REF_W1 = np.array(
@@ -53,6 +60,15 @@ _REF_W2 = np.array(
 _REF_B2 = np.array([-7.033320, 2.726400, -2.590206], dtype=np.float64)
 
 
+def mlp_apply(features, w1, b1, w2, b2) -> torch.Tensor:
+    """CE_Predictive_Node.cpp:214-235 on weight tensors: sigmoid hidden +
+    sigmoid output, in the weights' dtype, with TF32 off."""
+    x = features.to(w1.dtype)
+    with full_f32():
+        h = torch.sigmoid(torch.matmul(x, w1) + b1)
+        return torch.sigmoid(torch.matmul(h, w2) + b2)
+
+
 class OccupancyMLP(nn.Module):
     """Sigmoid MLP (..., n_in) -> (..., n_out) in [0, 1], weights (in, out)."""
 
@@ -68,10 +84,7 @@ class OccupancyMLP(nn.Module):
 
     def forward(self, features: torch.Tensor) -> torch.Tensor:
         """CE_Predictive_Node.cpp:214-235: sigmoid hidden + sigmoid output."""
-        x = features.to(self.w1.dtype)
-        with full_f32():
-            h = torch.sigmoid(torch.matmul(x, self.w1) + self.b1)
-            return torch.sigmoid(torch.matmul(h, self.w2) + self.b2)
+        return mlp_apply(features, self.w1, self.b1, self.w2, self.b2)
 
 
 def params_from_numpy(w1, b1, w2, b2, *, device=None, dtype=torch.float32) -> OccupancyMLP:

@@ -18,6 +18,15 @@ stream's bits, a batch (one launch) its streams' launched one by one, and
 interleaved planes the planar ones.  ``fused_band_features``: rtol 1e-4 against the dense plain
 version, 1e-6 against ``fused_sense_ct``'s features (the same register FFT in
 another kernel: equal or a few ulp), equal from run to run.
+``fused_sense_classify`` (the classify form of the sense kernel): spectrum
+and features ``torch.equal`` to ``fused_sense_ct``'s; outputs within atol
+1e-5 of the plain MLP on the kernel's own features (float32 dot products of at
+most 32 terms summed in another order, through a sigmoid whose slope is at
+most 1/4), within the golden gate's atol 2e-3 of the whole plain chain
+(features rtol 1e-4 apart); decisions ``torch.equal`` to the decision rule on
+the kernel's outputs and, away from the threshold, to the plain chain's; the
+retune trace (``sense_trace``) ``torch.equal`` to its plain version; one
+launch per ``make_sense_fn`` call, two with the trace.
 ``resolve_candidates`` is integers and one float32 compare: ``torch.equal``.
 Training on the card: ``make_dataset`` launches the sense kernel once, its
 features within rtol 1e-4 of the CPU plain path's; a wideband train step
@@ -42,8 +51,12 @@ from cognitive_radio_network_tpu_torch.ops.fused_sense import (
     fused_band_features_plain,
 )
 from cognitive_radio_network_tpu_torch.ops.fused_sense_ct import (
+    fused_sense_classify,
+    fused_sense_classify_plain,
     fused_sense_ct,
     fused_sense_ct_plain,
+    sense_trace,
+    sense_trace_plain,
 )
 from cognitive_radio_network_tpu_torch.ops.fused_wideband import (
     wideband_energy_fused,
@@ -61,7 +74,13 @@ from cognitive_radio_network_tpu_torch.phy import (
     OFDMFrameSync,
     StreamReceiver,
 )
-from cognitive_radio_network_tpu_torch.signal.mlp import OccupancyMLP, reference_weights
+from cognitive_radio_network_tpu_torch.signal.detector import occupancy_decision
+from cognitive_radio_network_tpu_torch.signal.mlp import (
+    OccupancyMLP,
+    init_mlp,
+    mlp_apply,
+    reference_weights,
+)
 
 pytestmark = [
     pytest.mark.cuda,
@@ -155,6 +174,156 @@ def test_main_path_launches_kernel_and_matches_cpu():
     assert host["decision"].device.type == "cuda" and params.w1.device.type == "cpu"
     assert torch.equal(host["decision"], res["decision"])
     assert torch.equal(host["features"], res["features"])
+
+
+def _scene_planes(c, seed=0):
+    """A Markov PU scene of c cycles at power 0.05, made on the card: planar
+    (C*10, 512) planes and the PU channel of each cycle."""
+    from cognitive_radio_network_tpu_torch.env import markov_pu_trace
+    from cognitive_radio_network_tpu_torch.env.scene import occupancy_to_powers, synthesize_scene
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    trace = markov_pu_trace(gen, c)
+    scene = synthesize_scene(gen, occupancy_to_powers(trace, 3, power=0.05), 5120, as_planes=True)
+    return tuple(scene[..., i].reshape(-1, 512).contiguous() for i in (0, 1)), trace
+
+
+def _weights(hidden, seed):
+    """Reference weights (H=5) or Glorot weights of H hidden units, on the card."""
+    if hidden is None:
+        mlp = reference_weights(device="cuda")
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        mlp = init_mlp(gen, 4, hidden, 3)
+        with torch.no_grad():  # init_mlp's biases are zero
+            mlp.b1.uniform_(-1, 1, generator=gen)
+            mlp.b2.uniform_(-1, 1, generator=gen)
+    return tuple(p.detach() for p in (mlp.w1, mlp.b1, mlp.w2, mlp.b2))
+
+
+def _check_classify(got, planes, w, *, log1p, threshold, tx0=None, averaging=10):
+    """The classify kernel's results against fused_sense_ct and the plain chain."""
+    avg, feats, outs, dec = got[:4]
+    avg_ct, feats_ct = fused_sense_ct(*planes, averaging=averaging)
+    plain = fused_sense_classify_plain(*planes, *w, averaging=averaging, log1p=log1p,
+                                       threshold=threshold, tx0=tx0)
+    torch.cuda.synchronize()
+    assert torch.equal(avg, avg_ct) and torch.equal(feats, feats_ct)
+    assert outs.dtype == torch.float32 and dec.dtype == torch.int32
+    on_own = mlp_apply(torch.log1p(feats) if log1p else feats, *w)
+    torch.testing.assert_close(outs, on_own, rtol=0.0, atol=1e-5)
+    torch.testing.assert_close(outs, plain[2], rtol=0.0, atol=2e-3)
+    assert torch.equal(dec, occupancy_decision(outs, threshold))
+    near = ((plain[2] - threshold).abs() < 2e-3).any(dim=1)
+    assert torch.equal(dec[~near], plain[3][~near])
+    return plain
+
+
+@pytest.mark.parametrize("cycles", [4096, 256, 16, 1])
+def test_classify_kernel_on_a_scene_equals_plain(cycles):
+    """The reference weights on a PU scene: decisions equal to the plain
+    chain's and to the PU channel + 1, the trace equal to the plain trace."""
+    planes, pu = _scene_planes(cycles, seed=cycles)
+    w = _weights(None, 0)
+    before, before_t = fused_sense_ct.launches, sense_trace.launches
+    got = fused_sense_classify(*planes, *w, tx0=833e6)
+    assert fused_sense_ct.launches == before + 1 and sense_trace.launches == before_t + 1
+    plain = _check_classify(got, planes, w, log1p=False, threshold=0.8, tx0=833e6)
+    assert torch.equal(got[3], plain[3])
+    assert torch.equal(got[3], (pu + 1).int())
+    assert torch.equal(got[4], plain[4]) and got[4].dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden,threshold", [(5, 0.8), (7, 0.5), (32, 0.3), (1, 0.6)])
+@pytest.mark.parametrize("cycles", [1, 133, 4096])
+def test_classify_kernel_log1p_any_hidden(cycles, hidden, threshold, dtype):
+    """Seeded weights on log1p features (as trained checkpoints take them), on
+    random planes scaled so the features spread: every H the contract takes,
+    other thresholds, bf16 planes (held to fused_sense_ct on the same bf16
+    values); the same bits from run to run."""
+    xr, xi = (0.01 * v for v in _planes(cycles, seed=cycles + hidden))
+    planes = (xr.to(dtype), xi.to(dtype))
+    w = _weights(hidden, cycles)
+    got = fused_sense_classify(*planes, *w, log1p=True, threshold=threshold)
+    again = fused_sense_classify(*planes, *w, log1p=True, threshold=threshold)
+    _check_classify(got, planes, w, log1p=True, threshold=threshold)
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+
+
+def test_classify_kernel_same_cycles_in_one_call_or_four():
+    """C=1000 in one call equals the same cycles in four calls of 250, the
+    trace carried from call to call through a 0-d tensor on the card."""
+    planes, _ = _scene_planes(1000, seed=5)
+    w = _weights(None, 0)
+    whole = fused_sense_classify(*planes, *w, tx0=838e6)
+    parts, tx0 = [], torch.tensor(838e6, device="cuda")
+    for k in range(4):
+        rows = slice(2500 * k, 2500 * (k + 1))
+        part = fused_sense_classify(planes[0][rows], planes[1][rows], *w, tx0=tx0)
+        tx0 = part[4][-1]
+        parts.append(part)
+    for i, g in enumerate(whole):
+        assert torch.equal(g, torch.cat([p[i] for p in parts])), i
+
+
+@pytest.mark.parametrize("cycles", [1, 31, 4095, 4096, 4097, 100_000])
+def test_trace_kernel_equals_plain(cycles):
+    """Random decisions with runs of zeros, the start as a number, a 0-d
+    float32 or float64 tensor on the card and a 0-d tensor on the host."""
+    g = torch.Generator(device="cuda").manual_seed(cycles)
+    dec = torch.randint(0, 4, (cycles,), generator=g, device="cuda", dtype=torch.int32)
+    dec[torch.rand(cycles, generator=g, device="cuda") < 0.6] = 0
+    dec[: cycles // 3] = 0
+    for tx0 in (833e6, np.float32(838e6), torch.tensor(835.5e6, device="cuda"),
+                torch.tensor(838e6, dtype=torch.float64, device="cuda"), torch.tensor(833e6)):
+        before = sense_trace.launches
+        got = sense_trace(dec, tx0)
+        assert sense_trace.launches == before + 1
+        want = sense_trace_plain(dec, tx0 if not isinstance(tx0, torch.Tensor) else tx0.cuda())
+        assert torch.equal(got, want), tx0
+
+
+def test_classify_kernel_rejects_bad_input():
+    xr, xi = _planes(2)
+    w = _weights(None, 0)
+    w1, b1, w2, b2 = w
+    with pytest.raises(TypeError, match="float32 weights"):
+        fused_sense_classify(xr, xi, w1.double(), b1, w2, b2)
+    with pytest.raises(ValueError, match=r"w1 \(4, H\)"):
+        fused_sense_classify(xr, xi, w1[:3], b1, w2, b2)
+    with pytest.raises(ValueError, match="1 <= H <= 32"):
+        big = torch.zeros(4, 33, device="cuda")
+        fused_sense_classify(xr, xi, big, torch.zeros(33, device="cuda"),
+                             torch.zeros(33, 3, device="cuda"), b2)
+    with pytest.raises(ValueError, match="but w2 on cpu"):
+        fused_sense_classify(xr, xi, w1, b1, w2.cpu(), b2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_sense_classify(xr.double(), xi.double(), *w)
+    with pytest.raises(TypeError, match="int32"):
+        sense_trace(torch.zeros(4, device="cuda"), 833e6)
+    with pytest.raises(ValueError, match="0-d"):
+        sense_trace(torch.zeros(4, dtype=torch.int32, device="cuda"),
+                    torch.zeros(2, device="cuda"))
+
+
+def test_sense_dispatch_is_one_launch():
+    """make_sense_fn on planes and parameters on the card launches the
+    classify kernel once a call and nothing else of ours; the trace form also
+    the trace kernel once."""
+    planes, _ = _scene_planes(64, seed=9)
+    params = reference_weights(device="cuda")
+    fn, fn_t = make_sense_fn(SenseConfig()), make_sense_fn(SenseConfig(), with_trace=True)
+    before, before_t = fused_sense_ct.launches, sense_trace.launches
+    res = fn(planes, params)
+    assert (fused_sense_ct.launches, sense_trace.launches) == (before + 1, before_t)
+    res_t, freq = fn_t(planes, params, 833e6)
+    assert (fused_sense_ct.launches, sense_trace.launches) == (before + 2, before_t + 1)
+    for key in res:
+        assert torch.equal(res[key], res_t[key])
+    plain = fused_sense_classify_plain(*planes, params.w1, params.b1, params.w2, params.b2,
+                                       tx0=833e6)
+    assert torch.equal(res["decision"], plain[3]) and torch.equal(freq, plain[4])
 
 
 LINK_N = 1_265_664  # 256 default-config frames of 4864 samples with 80-sample gaps
