@@ -43,7 +43,7 @@ env       Markov/random PU traces, scene synthesis, channel impairments,
 io        recorded-IQ captures, MLP checkpoints and training states (same
           file formats and keys)
 tools     the headless spectrum analyzer (waterfall, PSD, live monitor)
-utils     device selection, float32 control, timers, profiling
+utils     device selection, float32 control, the timer, profiling and the tracer
 runtime   ``ScenarioRuntime``: configs, the simulated medium, radios, nodes,
           the control channel, logs; ``engines`` and ``controllers`` hold
           the cognitive engines and scenario controllers

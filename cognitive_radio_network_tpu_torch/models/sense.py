@@ -34,6 +34,7 @@ from cognitive_radio_network_tpu_torch.signal import detector as det
 from cognitive_radio_network_tpu_torch.signal.fft import averaged_magnitude_spectrum
 from cognitive_radio_network_tpu_torch.signal.iq import split_iq
 from cognitive_radio_network_tpu_torch.signal.mlp import OccupancyMLP
+from cognitive_radio_network_tpu_torch.utils import profiling
 from cognitive_radio_network_tpu_torch.utils.device import on_cuda
 
 __all__ = ["SenseConfig", "sense_classify", "sense_classify_trace", "make_sense_fn"]
@@ -81,47 +82,50 @@ _KEYS = ("avg_spectrum", "features", "outputs", "decision")
 _tx_freq_trace = det.tx_freq_trace
 
 
-@torch.no_grad()
 def _sense(iq, params: OccupancyMLP, cfg: SenseConfig, tx0=None):
     """The results dict, and with ``tx0`` the trace (else None)."""
     n, a = cfg.fft_length, cfg.averaging
-    if isinstance(iq, (tuple, list)):  # planar (xr, xi): the kernel's layout
-        blocks = tuple(_as_tensor(v).float().reshape(-1, n) for v in iq)
-        first = blocks[0]
-    else:
-        iq = _as_tensor(iq)
-        blocks = iq.reshape(-1, a, n) if iq.is_complex() else iq.reshape(-1, a, n, 2)
-        first = blocks
-    use_fused = cfg.use_fused_kernel
-    if use_fused is None:
-        use_fused = cfg.fft_mode == "ct_matmul" and n == 512 and on_cuda(first)
-    if use_fused:
-        xr, xi = blocks if isinstance(blocks, tuple) else split_iq(blocks)
-        out = fused_sense_classify(
-            xr.contiguous(),
-            xi.contiguous(),
-            params.w1,
-            params.b1,
-            params.w2,
-            params.b2,
-            averaging=a,
-            bands=cfg.bands,
-            threshold=cfg.threshold,
-            log1p=cfg.feature_transform == "log1p",
-            tx0=tx0,
-            channels_hz=cfg.channels_hz,
-            precision=cfg.precision,
-        )
-        return dict(zip(_KEYS, out)), (None if tx0 is None else out[4])
-    if isinstance(blocks, tuple):
-        blocks = tuple(v.reshape(-1, a, n) for v in blocks)
-    avg = averaged_magnitude_spectrum(blocks, averaging=a, mode=cfg.fft_mode, precision=cfg.precision)
-    feats = bands_mod.band_features(avg, cfg.bands)
-    mlp_in = torch.log1p(feats) if cfg.feature_transform == "log1p" else feats
-    outs = params(mlp_in)
-    decision = det.occupancy_decision(outs, cfg.threshold)
-    res = dict(zip(_KEYS, (avg, feats, outs, decision)))
-    return res, (None if tx0 is None else _tx_freq_trace(decision, tx0, cfg.channels_hz))
+    with profiling.span("sense.prepare"):
+        if isinstance(iq, (tuple, list)):  # planar (xr, xi): the kernel's layout
+            blocks = tuple(_as_tensor(v).float().reshape(-1, n) for v in iq)
+            first = blocks[0]
+        else:
+            iq = _as_tensor(iq)
+            blocks = iq.reshape(-1, a, n) if iq.is_complex() else iq.reshape(-1, a, n, 2)
+            first = blocks
+        use_fused = cfg.use_fused_kernel
+        if use_fused is None:
+            use_fused = cfg.fft_mode == "ct_matmul" and n == 512 and on_cuda(first)
+        if use_fused:
+            xr, xi = blocks if isinstance(blocks, tuple) else split_iq(blocks)
+            xr, xi = xr.contiguous(), xi.contiguous()
+        elif isinstance(blocks, tuple):
+            blocks = tuple(v.reshape(-1, a, n) for v in blocks)
+    with profiling.span("sense.classify"), torch.no_grad():
+        if use_fused:
+            out = fused_sense_classify(
+                xr,
+                xi,
+                params.w1,
+                params.b1,
+                params.w2,
+                params.b2,
+                averaging=a,
+                bands=cfg.bands,
+                threshold=cfg.threshold,
+                log1p=cfg.feature_transform == "log1p",
+                tx0=tx0,
+                channels_hz=cfg.channels_hz,
+                precision=cfg.precision,
+            )
+            return dict(zip(_KEYS, out)), (None if tx0 is None else out[4])
+        avg = averaged_magnitude_spectrum(blocks, averaging=a, mode=cfg.fft_mode, precision=cfg.precision)
+        feats = bands_mod.band_features(avg, cfg.bands)
+        mlp_in = torch.log1p(feats) if cfg.feature_transform == "log1p" else feats
+        outs = params(mlp_in)
+        decision = det.occupancy_decision(outs, cfg.threshold)
+        res = dict(zip(_KEYS, (avg, feats, outs, decision)))
+        return res, (None if tx0 is None else _tx_freq_trace(decision, tx0, cfg.channels_hz))
 
 
 def sense_classify(iq, params: OccupancyMLP, cfg: SenseConfig = SenseConfig()):
@@ -172,25 +176,29 @@ def make_sense_fn(
     device = torch.device(device)
 
     def place(x):
-        return torch.as_tensor(x).to(device)
+        with profiling.span("sense.upload"):
+            return torch.as_tensor(x).to(device)
 
     def placed(iq, params: OccupancyMLP):
-        iq = tuple(place(v) for v in iq) if isinstance(iq, (tuple, list)) else place(iq)
-        target = (iq[0] if isinstance(iq, tuple) else iq).device  # "cuda" alone: the current card
-        if params.w1.device != target:
-            params = copy.deepcopy(params).to(target)
-        return iq, params
+        with profiling.span("sense.place"):
+            iq = tuple(place(v) for v in iq) if isinstance(iq, (tuple, list)) else place(iq)
+            target = (iq[0] if isinstance(iq, tuple) else iq).device  # "cuda" alone: the current card
+            if params.w1.device != target:
+                params = copy.deepcopy(params).to(target)
+            return iq, params
 
     if with_trace:
 
         def fn(iq, params, tx0):
-            iq, params = placed(iq, params)
-            return sense_classify_trace(iq, params, tx0, cfg)
+            with profiling.span("sense.call"):
+                iq, params = placed(iq, params)
+                return sense_classify_trace(iq, params, tx0, cfg)
 
         return fn
 
     def fn(iq, params):
-        iq, params = placed(iq, params)
-        return sense_classify(iq, params, cfg)
+        with profiling.span("sense.call"):
+            iq, params = placed(iq, params)
+            return sense_classify(iq, params, cfg)
 
     return fn

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from cognitive_radio_network_tpu_torch.phy.bits import pack_bits, pack_bits_tensor, unpack_bits
+from cognitive_radio_network_tpu_torch.utils import profiling
 
 __all__ = [
     "SCHEMES",
@@ -288,6 +289,7 @@ def viterbi_decode(coded_bits: torch.Tensor, n_bits: int) -> torch.Tensor:
     inv_s, inv_b, inv_o = _viterbi_tables(dev)
     batch_shape = coded_bits.shape[:-1]
     t_total = n_bits + _CONV_K - 1
+    profiling.count("fec.viterbi_host_steps", 2 * t_total)  # add-compare-select, then traceback
     flat = coded_bits.reshape(-1, coded_bits.shape[-1]).to(torch.int32)
     b = flat.shape[0]
     syms = (flat[:, 0 : 2 * t_total : 2] << 1) | flat[:, 1 : 2 * t_total : 2]  # (B, T)

@@ -63,6 +63,7 @@ from cognitive_radio_network_tpu_torch.phy.framesync import (
     _window_buffers,
 )
 from cognitive_radio_network_tpu_torch.signal.iq import split_iq
+from cognitive_radio_network_tpu_torch.utils import profiling
 
 __all__ = ["StreamReceiver"]
 
@@ -435,40 +436,45 @@ class StreamReceiver:
         Returns a list of dicts: {offset, stats, header, payload} with
         ``offset`` the absolute sample index of the frame start.
         """
-        buf = np.concatenate([self._residual, self._host_block(iq)])
-        base = self._residual_offset
-        n = len(buf)
-        # position to keep from for the next block: by default just a
-        # preamble-sized tail; an incomplete frame pulls it back to its start
-        keep_from = max(n - self.prefix_len, 0)
-        if n < self.prefix_len + 4 * self.cfg.num_subcarriers:
-            self._residual = buf
-            return []
+        with profiling.span("rx.process"):
+            with profiling.span("rx.stage"):
+                buf = np.concatenate([self._residual, self._host_block(iq)])
+                base = self._residual_offset
+                n = len(buf)
+                # position to keep from for the next block: by default just a
+                # preamble-sized tail; an incomplete frame pulls it back to its start
+                keep_from = max(n - self.prefix_len, 0)
+                if n < self.prefix_len + 4 * self.cfg.num_subcarriers:
+                    self._residual = buf
+                    return []
 
-        # Scan the whole buffer for up to K frame candidates.  K is bounded
-        # by physics: decodable frames are at least a header prefix apart.
-        # The buffer is zero-padded to the reference's bucket and K follows
-        # the bucket, so both packages scan the same shape.
-        bucket = _bucket_len(n, 4 * self.cfg.num_subcarriers)
-        keff = min(self.max_frames_per_block, max(4, -(-bucket // self.prefix_len)))
-        host = np.zeros((2, bucket), np.float32)
-        host[0, :n] = buf.real
-        host[1, :n] = buf.imag
-        planes = torch.from_numpy(host).to(self.device)  # the block's one upload
-        packed = _scan_block_graph_packed(self.layout, planes[0], planes[1], n, k=keff)
-        bests, peaks, cfos, _headers, phys, hdr_ok = _unpack_scan(packed.cpu().numpy())
+                # Scan the whole buffer for up to K frame candidates.  K is bounded
+                # by physics: decodable frames are at least a header prefix apart.
+                # The buffer is zero-padded to the reference's bucket and K follows
+                # the bucket, so both packages scan the same shape.
+                bucket = _bucket_len(n, 4 * self.cfg.num_subcarriers)
+                keff = min(self.max_frames_per_block, max(4, -(-bucket // self.prefix_len)))
+                host = np.zeros((2, bucket), np.float32)
+                host[0, :n] = buf.real
+                host[1, :n] = buf.imag
+            with profiling.span("rx.upload"):
+                planes = torch.from_numpy(host).to(self.device)  # the block's one upload
+            with profiling.span("rx.scan"):
+                packed = _scan_block_graph_packed(self.layout, planes[0], planes[1], n, k=keff)
+            with profiling.span("rx.scan_read"):
+                bests, peaks, cfos, _headers, phys, hdr_ok = _unpack_scan(packed.cpu().numpy())
+            with profiling.span("rx.resolve"):
+                accepted, consumed_end, keep_from = self._resolve_candidates(
+                    bests, peaks, hdr_ok, phys, n, threshold, keep_from
+                )
+            frames = self._decode_groups(planes[0], planes[1], accepted, cfos, base)
 
-        accepted, consumed_end, keep_from = self._resolve_candidates(
-            bests, peaks, hdr_ok, phys, n, threshold, keep_from
-        )
-        frames = self._decode_groups(planes[0], planes[1], accepted, cfos, base)
-
-        keep_from = max(keep_from, consumed_end)
-        # never let the residual grow beyond a bound (malformed stream guard)
-        keep_from = max(keep_from, n - self.max_residual)
-        self._residual = buf[keep_from:]
-        self._residual_offset = base + keep_from
-        return frames
+            keep_from = max(keep_from, consumed_end)
+            # never let the residual grow beyond a bound (malformed stream guard)
+            keep_from = max(keep_from, n - self.max_residual)
+            self._residual = buf[keep_from:]
+            self._residual_offset = base + keep_from
+            return frames
 
     @property
     def max_residual(self) -> int:
@@ -481,10 +487,12 @@ class StreamReceiver:
         accepted: dict[tuple, list[tuple[int, int]]] = {}  # key -> [(off, cand)]
         consumed_end = 0
         incomplete = False
+        attempted = 0
         for i in np.argsort(bests, kind="stable"):
             off, pk = int(bests[i]), float(peaks[i])
             if pk < threshold or off < consumed_end:
                 continue
+            attempted += 1
             if off + self.prefix_len > n:
                 # header region incomplete; wait for more samples
                 keep_from = min(keep_from, off)
@@ -503,6 +511,8 @@ class StreamReceiver:
             accepted.setdefault(parsed, []).append((off, int(i)))
             consumed_end = off + flen
         self.pending_frame = incomplete
+        profiling.count("rx.candidates_attempted", attempted)
+        profiling.count("rx.candidates_accepted", sum(map(len, accepted.values())))
         return accepted, consumed_end, keep_from
 
     def _decode_groups(self, rr_d, ri_d, accepted, cfos, base):
@@ -510,24 +520,26 @@ class StreamReceiver:
         dispatched first, then the results are fetched."""
         dev = rr_d.device
         pending = []
-        for parsed, items in accepted.items():
-            sync = self._sync_for(*parsed)
-            offs = torch.tensor([off for off, _ in items], dtype=torch.int64).to(dev)
-            cf = torch.from_numpy(np.asarray([cfos[i] for _, i in items], np.float32)).to(dev)
-            pending.append((sync, items, *_rx_at_graph_packed(sync.gen, rr_d, ri_d, offs, cf)))
-        frames = []
-        for sync, items, bpk, fpk in pending:
-            out = _unpack_rx(bpk.cpu().numpy(), fpk.cpu().numpy(), sync.payload_len)
-            for j, (off, _i) in enumerate(items):
-                frames.append(
-                    {
-                        "offset": base + off,
-                        "stats": sync._stats_from(out, j),
-                        "header": out["headers"][j],
-                        "payload": out["payloads"][j],
-                    }
-                )
-        frames.sort(key=lambda f: f["offset"])
+        with profiling.span("rx.decode"):
+            for parsed, items in accepted.items():
+                sync = self._sync_for(*parsed)
+                offs = torch.tensor([off for off, _ in items], dtype=torch.int64).to(dev)
+                cf = torch.from_numpy(np.asarray([cfos[i] for _, i in items], np.float32)).to(dev)
+                pending.append((sync, items, *_rx_at_graph_packed(sync.gen, rr_d, ri_d, offs, cf)))
+        with profiling.span("rx.decode_read"):
+            frames = []
+            for sync, items, bpk, fpk in pending:
+                out = _unpack_rx(bpk.cpu().numpy(), fpk.cpu().numpy(), sync.payload_len)
+                for j, (off, _i) in enumerate(items):
+                    frames.append(
+                        {
+                            "offset": base + off,
+                            "stats": sync._stats_from(out, j),
+                            "header": out["headers"][j],
+                            "payload": out["payloads"][j],
+                        }
+                    )
+            frames.sort(key=lambda f: f["offset"])
         return frames
 
     def process_device(self, blk_r, blk_i, threshold: float = 0.2):

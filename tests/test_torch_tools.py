@@ -31,7 +31,7 @@ from cognitive_radio_network_tpu_torch.phy import gmsk
 from cognitive_radio_network_tpu_torch.signal import filters
 from cognitive_radio_network_tpu_torch.tools import spectrum_analyzer as sa
 from cognitive_radio_network_tpu_torch.utils import profiling
-from cognitive_radio_network_tpu_torch.utils.timer import LatencyRecorder, Timer
+from cognitive_radio_network_tpu_torch.utils.timer import Timer
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -277,19 +277,6 @@ def test_timer_tic_toc():
     assert first >= 0.01 and t.toc() >= first  # toc does not reset
     t.tic()
     assert t.toc() < first
-
-
-def test_latency_recorder():
-    rec = LatencyRecorder()
-    assert all(np.isnan(v) for v in rec.percentiles().values())
-    for s in (0.001, 0.002, 0.003, 0.004):
-        rec.record(s)
-    assert rec.time(lambda a, b=0: a + b, 1, b=2) == 3
-    assert len(rec.samples) == 5
-    p = rec.percentiles((50, 100))
-    assert p[50] == pytest.approx(0.002) and p[100] == pytest.approx(0.004)
-    counts, edges = rec.histogram(bins=4)
-    assert counts.sum() == 5 and len(edges) == 5
 
 
 def test_device_time_keys_on_the_cpu():
