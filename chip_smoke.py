@@ -115,7 +115,12 @@ one line; any failure raises, and the exit code is then non-zero.
    samples, payloads equal.
 16. the three APIs (``process``, ``process_device``, ``feed_device``/``flush``)
    on one random mixed-config stream: equal offsets, headers, payloads, and
-   equal to the CPU run; then a qam16/v27 stream through ``process_device``.
+   equal to the CPU run; then a qam16/v27 stream through ``process_device``;
+   then ``predictive_model.cfg``'s link (qam16, crc32, v27+v27) beside
+   qam4/h128 through ``process``, the counts at 0 just before it: all frames
+   intact, the Viterbi kernel (``viterbi_decode_k7``) decoding both codes of
+   each v27+v27 frame, 2 launches per decoded group of frames, and no host
+   step of the plain loop (``fec.viterbi_host_steps``).
 17. the adaptive stream at full width (the reference bench's shape,
    bench.py:324-374): 2,048 frames of 256 bytes alternating qam4/h128 and
    qam16/none, gap 512, 4 blocks, ``max_frames_per_block`` 520,
@@ -132,6 +137,14 @@ one line; any failure raises, and the exit code is then non-zero.
    ``feed_device`` call, synchronizing calls inside the dispatches (PyTorch's sync debug mode;
    must be none), device operations, kernel launches and busy time per step
    from a profiler trace, and the device's idle share of a pass.
+17b. Viterbi, kernel vs plain: ``viterbi_decode_k7`` against
+   ``viterbi_decode_plain`` (``torch.equal``) on encoded random payloads with
+   about 4% of the coded bits flipped, at a 256-byte packet's inner code
+   (4,176 bits) and outer code (2,080 bits), 1 and 8 frames a launch, the
+   plain loop on the card; and one frame of 40,000 bits, the plain loop on
+   the CPU; then times: the kernel on the card (profiler, median of 20), by
+   CUDA events, the wrapper's host time, the cycles a trellis step, the bound
+   and the plain loop's time at one frame.
 18. the two-node FDD link scenario (tests/test_runtime.py:117-145: 4 MS/s
    medium, 16,384-sample blocks, 200 kb/s each way) through
    ``ScenarioRuntime`` on the card for 1.0 s: packets both ways with payloads
@@ -146,7 +159,8 @@ one line; any failure raises, and the exit code is then non-zero.
    device operations and busy time per step and the device's idle share.
 20. ``scenarios/predictive_model.cfg`` as the reference's bench runs it
    (bench.py:452-467): a 0.5 s warm-up, then 12.0 s: no failed node,
-   decisions, exactly one ``fused_sense_ct`` launch per decision, and
+   decisions, exactly one ``fused_sense_ct`` launch per decision, the
+   Viterbi kernel's launches, and
    ``scenario_realtime_factor`` = steady_t / steady_wall_time_s; then the
    ``CE_TX_CHANNEL_X -c 1`` variant (the SU decides 1 and retunes to 835 MHz;
    its decisions equal the CPU run's, its MLP outputs within atol 2e-3);
@@ -219,7 +233,12 @@ the (4, 65,536) batch's ``batch_ms`` and ``batch_bound_ms``; the sense
 entry the classify form's ``tail_ms`` (f32 and bf16, C=4096) and
 ``tail_max_abs_err``, and ``path_calls``: device operations and ms of a
 ``make_sense_fn`` call at C = 4096, 256 and 1, with and without the trace;
-the trace kernel has an entry of its own (``sense_trace``).
+the trace kernel has an entry of its own (``sense_trace``); the Viterbi
+kernel's entry (``viterbi_decode_k7``) its launches, ``process`` calls and
+kernel frames in phase 16's v27+v27 stream, its launches in phase 20, and
+each shape of phase 17b (the bound there counts the selectors' round trip
+through the scratch too; the kernel is bound by the latency of its dependent
+trellis steps, far above it).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -254,6 +273,13 @@ DENSE_PRODUCT_MS = 2.6950  # the kernel as a tiled dense product, C=4096, H100 8
 RESOLVE_SOURCE = "cognitive_radio_network_tpu_torch/csrc/resolve_candidates.cu"
 # no TPU kernel: the lax.scan of the reference's stream-step graph
 RESOLVE_REPLACES = "cognitive_radio_network_tpu/phy/framesync.py:900"
+VITERBI_SOURCE = "cognitive_radio_network_tpu_torch/csrc/viterbi_k7.cu"
+# no TPU kernel: the lax.scan of the reference's v27 decoder
+VITERBI_REPLACES = "cognitive_radio_network_tpu/phy/fec.py:263"
+# (decoded bits, frames a launch): a 256-byte crc32 packet's inner code (4,176
+# bits, 4,182 steps) and outer code (2,080 bits), alone and 8 at once; and one
+# frame of 40,006 steps, 20 of the kernel's 2,048-step chunks
+VITERBI_SHAPES = ((4176, 1), (4176, 8), (2080, 1), (2080, 8), (40_000, 1))
 STREAM_FRAMES, STREAM_PAYLOAD, STREAM_GAP = 2048, 256, 512  # bench.py:326-338
 STREAM_BLOCKS, STREAM_LAG, STREAM_GROUP, STREAM_PASSES = 4, 18, 8, 6  # bench.py:355-357, :390
 WIDE_T = 524_288  # per-channel times per dispatch of the reference's bench (bench.py:250-261)
@@ -311,7 +337,8 @@ def reset_counts() -> None:
     from cognitive_radio_network_tpu_torch import ops
 
     for fn in (ops.fused_sense_ct, ops.extract_windows, ops.wideband_energy_fused,
-               ops.fused_band_features, ops.resolve_candidates, ops.sense_trace):
+               ops.fused_band_features, ops.resolve_candidates, ops.sense_trace,
+               ops.viterbi_decode_k7):
         fn.launches = 0
 
 
@@ -1124,13 +1151,15 @@ def adaptive_blocks(dev):
     return blocks, hdrs, pays, pair.shape[1]
 
 
-def stream_phases(dev, smi: str) -> tuple[dict, dict]:
+def stream_phases(dev, smi: str) -> tuple[dict, dict, dict]:
     """Phases 14-17: the resolve kernel against its plain version, the
     adaptive gate, the three streaming APIs, and the adaptive stream at full
     width with its times.  Returns the resolve kernel's entry of the kernels
-    line and what the stream step showed of the extract kernel: its launches per
+    line, what the stream step showed of the extract kernel (its launches per
     step, its error against the plain version on the step's own windows, and
-    its times and bound at the step's widest shape."""
+    its times and bound at the step's widest shape) and what the v27+v27
+    stream showed of the Viterbi kernel (launches, ``process`` calls and the
+    frames it decoded)."""
     import dataclasses
     import warnings
 
@@ -1147,7 +1176,9 @@ def stream_phases(dev, smi: str) -> tuple[dict, dict]:
         resolve_candidates,
         resolve_candidates_plain,
     )
+    from cognitive_radio_network_tpu_torch.ops.viterbi import viterbi_decode_k7
     from cognitive_radio_network_tpu_torch.profile_extract import device_us_per_launch, gather_bytes
+    from cognitive_radio_network_tpu_torch.utils import profiling
     from cognitive_radio_network_tpu_torch.phy import (
         OFDMFrameConfig,
         OFDMFrameGen,
@@ -1286,7 +1317,41 @@ def stream_phases(dev, smi: str) -> tuple[dict, dict]:
     check_frames(frames, placed, "v27 stream")
     phase("three-apis", f"{len(placed)} frames alternating qam4/h128 and qam16/v27 through "
           f"process_device in 3 blocks: all intact in {time.perf_counter() - t0:.2f} s host time "
-          f"(first calls; the Viterbi loop is a launch per time step)")
+          f"(first calls)")
+    # predictive_model.cfg's link (qam16, crc32, v27+v27) beside qam4/h128
+    # through process, the counts at 0 just before it: the Viterbi kernel's
+    # launches per call, the frames it decoded and no host step of the loop
+    cfg_vv = dataclasses.replace(cfg_v, fec1="v27")
+    rng = np.random.default_rng(10)
+    stream = noise(rng, 12000)
+    placed = place(stream, [(cfg_a, 40), (cfg_vv, 96)] * 2, rng, 300, 300)
+    if [mod for _, _, mod in placed] != ["qam4", "qam16"] * 2:
+        raise AssertionError(f"v27+v27 stream: {len(placed)} frames placed, not 4")
+    rx = StreamReceiver(cfg_a, max_frames_per_block=8)
+    torch.cuda.synchronize()
+    reset_counts()
+    frames, calls = [], 0
+    with profiling.recording() as recs:
+        for s0 in range(0, len(stream), 3000):
+            frames += rx.process(stream[s0 : s0 + 3000])
+            calls += 1
+    counts = {}
+    for c in profiling.calls(recs):
+        for k, v in c["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    check_frames(frames, placed, "v27+v27 stream")
+    viterbi = {"launches": viterbi_decode_k7.launches, "process_calls": calls,
+               "kernel_frames": counts.get("fec.viterbi_kernel_frames", 0)}
+    if "fec.viterbi_host_steps" in counts or viterbi["kernel_frames"] != 4:
+        raise AssertionError(f"v27+v27 stream: counts {counts}, not 4 kernel frames (the inner "
+                             f"and the outer code of 2 frames) and no host step")
+    if not 2 <= viterbi["launches"] <= 4 or viterbi["launches"] % 2:
+        raise AssertionError(f"v27+v27 stream: {viterbi['launches']} Viterbi launches for 2 "
+                             f"frames, not 2 per decoded group of frames")
+    phase("three-apis", f"{len(placed)} frames alternating qam4/h128 and qam16/v27+v27 through "
+          f"process in {calls} blocks: all intact; Viterbi launches {viterbi['launches']} "
+          f"({viterbi['launches'] / calls:.3g} per process call), kernel frames "
+          f"{viterbi['kernel_frames']} (both codes of each v27+v27 frame), host steps 0")
 
     # 17. the adaptive stream at full width (bench.py:324-374)
     t0 = time.perf_counter()
@@ -1563,7 +1628,7 @@ def stream_phases(dev, smi: str) -> tuple[dict, dict]:
         "stream_step_bound_ms": fused_t[3],
         "stream_step_host_us_with_out": fused_t[4],
     }
-    return entry, stream_extract
+    return entry, stream_extract, viterbi
 
 
 class HostBreakdown:
@@ -1639,6 +1704,89 @@ class HostBreakdown:
         return (f"host ms per step over {steps} steps: {body}; other (runtime loop, traffic, "
                 f"stats) {rest / steps * 1e3:.3f}; of the engines, classify "
                 f"{t['classify'] / steps * 1e3:.3f} ({self.calls['classify']} calls)")
+
+
+def viterbi_phase(dev, smi: str, stream: dict) -> dict:
+    """Phase 17b: the Viterbi kernel against its plain version and its times.
+    Returns the kernel's entry of the kernels line, with ``stream``, what the
+    v27+v27 stream of phase 16 showed of it."""
+    import numpy as np
+    import torch
+
+    from cognitive_radio_network_tpu_torch.ops.viterbi import (
+        viterbi_decode_k7,
+        viterbi_decode_plain,
+    )
+    from cognitive_radio_network_tpu_torch.phy import fec
+    from cognitive_radio_network_tpu_torch.utils.profiling import device_time
+
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
+    rows = []
+    for n_bits, frames in VITERBI_SHAPES:
+        # encoded random payloads with about 4% of the coded bits flipped
+        steps = n_bits + 6
+        rng = np.random.default_rng([n_bits, frames])
+        coded = fec.conv_encode_bits_batch(rng.integers(0, 2, (frames, n_bits)).astype(np.uint8))
+        coded ^= (rng.random(coded.shape) < 0.04).astype(np.uint8)
+        host = torch.from_numpy(coded)
+        card = host.to(dev)
+        got = viterbi_decode_k7(card, n_bits)
+        # the plain loop on the card at the path's shapes, on the CPU (the
+        # same integers, faster than ~5 launches a step) for the long frame
+        long_frame = n_bits > 10_000
+        want = viterbi_decode_plain(host if long_frame else card, n_bits).to(dev)
+        err = (got.int() - want.int()).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"Viterbi kernel differs from the plain version at {n_bits} "
+                                 f"bits x {frames} ({(got != want).sum().item()} bits)")
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                viterbi_decode_k7(card, n_bits)
+            torch.cuda.synchronize()
+        durs = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                if e.device_type.name == "CUDA" and "viterbi" in e.name]
+        ms = statistics.median(durs)
+        padded = -(-steps // 32) * 32
+        # coded bits read, decoded bits written, the selectors written and read back
+        bound_ms, bound_by = bound(frames * (2 * steps + n_bits + 16 * padded), 0)
+        row = {"n_bits": n_bits, "steps": steps, "frames": frames, "max_abs_err": err, "ms": ms,
+               "events_ms": device_time(viterbi_decode_k7, card, n_bits, reps=50)["mean_s"] * 1e3,
+               "cycles_per_step": ms * 1e-3 * sm_mhz * 1e6 / steps,
+               "host_us": host_us(lambda: viterbi_decode_k7(card, n_bits)),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        plain = ""
+        if frames == 1 and not long_frame:
+            row["plain_ms"] = device_time(viterbi_decode_plain, card, n_bits, reps=1,
+                                          warmup=1)["mean_s"] * 1e3
+            plain = f"; the plain loop {row['plain_ms']:.1f} ms by CUDA events"
+        rows.append(row)
+        phase("viterbi", f"{n_bits} bits ({steps} steps) x {frames}: torch.equal to the plain "
+              f"version; kernel {ms:.4f} ms on the card (profiler, median of {len(durs)}), "
+              f"{row['events_ms']:.4f} ms by CUDA events, {row['cycles_per_step']:.1f} cycles a "
+              f"step at {sm_mhz:.0f} MHz; host {row['host_us']:.1f} us a call; bound by "
+              f"{bound_by} {bound_ms * 1e3:.4f} us{plain}; {smi}")
+    inner = rows[0]
+    return {
+        "name": "viterbi_decode_k7",
+        "route": "cuda",
+        "source": VITERBI_SOURCE,
+        "replaces": VITERBI_REPLACES,
+        "launches": stream["launches"],
+        "launches_per_process_call": stream["launches"] / stream["process_calls"],
+        "kernel_frames": stream["kernel_frames"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": inner["ms"],
+        "events_ms": inner["events_ms"],
+        "plain_ms": inner["plain_ms"],
+        # bytes are not what bounds it: T dependent steps, forward then back
+        "bound_ms": inner["bound_ms"],
+        "bound_by": inner["bound_by"],
+        "library_ms": None,  # PyTorch has no trellis decoder
+        "shapes": rows,
+    }
 
 
 def link_scenario_cfg(run_time: float):
@@ -1832,6 +1980,7 @@ def scenario_phases(smi: str) -> dict:
     eng = rt.nodes[1].engine
     launches["predictive"] = ops.fused_sense_ct.launches
     launches["predictive_extract"] = ops.extract_windows.launches
+    launches["predictive_viterbi"] = ops.viterbi_decode_k7.launches
     if not eng.decisions:
         raise AssertionError("the predictive SU made no decision")
     if launches["predictive"] != len(eng.decisions):
@@ -1842,7 +1991,8 @@ def scenario_phases(smi: str) -> dict:
     phase("scenario-predictive", f"{PREDICTIVE_S} s after a 0.5 s warm-up: {len(eng.decisions)} "
           f"decisions {dict(sorted(Counter(eng.decisions).items()))}, fused_sense_ct launches "
           f"{launches['predictive']} (one per decision), extract launches "
-          f"{launches['predictive_extract']}; bytes sent {summary.bytes_sent}; wall {wall:.3f} s; "
+          f"{launches['predictive_extract']}, Viterbi launches "
+          f"{launches['predictive_viterbi']}; bytes sent {summary.bytes_sent}; wall {wall:.3f} s; "
           f"scenario_realtime_factor = steady_t / steady_wall_time_s = {rt.steady_t:.4f} / "
           f"{rt.steady_wall_time_s:.4f} = {factor:.4f}; {smi}")
     phase("scenario-predictive", hb.line(steps, rt.wall_time_s) + f"; {smi}")
@@ -2884,7 +3034,8 @@ def main() -> int:
     extract_entry = link_phases(dev, smi)
     new_entries = wideband_and_dense_phases(dev, smi, planar, trace, params)
     del planar
-    resolve_entry, stream_extract = stream_phases(dev, smi)
+    resolve_entry, stream_extract, stream_viterbi = stream_phases(dev, smi)
+    viterbi_entry = viterbi_phase(dev, smi, stream_viterbi)
     scn = scenario_phases(smi)
     dist = distributed_phases(smi, scn)
     train = training_phases(dev, smi)
@@ -2932,7 +3083,8 @@ def main() -> int:
         "bound_ms": bound(CYCLES * 8, 0)[0],
         "bound_by": "bytes",
         "library_ms": None,  # a scan of "the last non-zero": no single PyTorch call
-    }, extract_entry, *new_entries, resolve_entry]
+    }, extract_entry, *new_entries, resolve_entry, viterbi_entry]
+    viterbi_entry["scenario_launches"] = {"predictive_model.cfg": scn["predictive_viterbi"]}
     new_entries[0]["training_launches"] = {"train_steps": train["train_steps"]}
     new_entries[0]["sharded_launches"] = sharded["wideband"]
     extract_entry["sharded_launches"] = sharded["extract"]

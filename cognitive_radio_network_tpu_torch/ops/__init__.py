@@ -11,13 +11,14 @@ Each replaces one Pallas TPU kernel of ``cognitive_radio_network_tpu/ops``
 ``wideband_energy_fused_planes``  (the same kernel on interleaved planes)
 ``fused_band_features``    ``fused_sense.py``     -> ``csrc/fused_sense.cu``
 
-Every TPU kernel of the reference has its counterpart here.  One kernel has
-no TPU counterpart: ``resolve_candidates`` (``csrc/resolve_candidates.cu``),
+Every TPU kernel of the reference has its counterpart here.  Three kernels
+have no TPU counterpart: ``resolve_candidates`` (``csrc/resolve_candidates.cu``),
 the adaptive stream step's greedy walk over its candidates, which the
-reference runs as a ``lax.scan`` inside its step graph; and ``sense_trace``
+reference runs as a ``lax.scan`` inside its step graph; ``sense_trace``
 (in ``csrc/fused_sense_ct.cu``), the retune trace the reference's sense
-pipeline runs as a ``lax.scan``.  Kernels build at
-first launch, never at import.
+pipeline runs as a ``lax.scan``; and ``viterbi_decode_k7``
+(``csrc/viterbi_k7.cu``), the v27 decoder the reference runs as a
+``lax.scan`` (``phy/fec.py``).  Kernels build at first launch, never at import.
 """
 
 from cognitive_radio_network_tpu_torch.ops.extract import (
@@ -48,6 +49,7 @@ from cognitive_radio_network_tpu_torch.ops.resolve import (
     resolve_candidates,
     resolve_candidates_plain,
 )
+from cognitive_radio_network_tpu_torch.ops.viterbi import viterbi_decode_k7, viterbi_decode_plain
 
 __all__ = [
     "extract_window_sets",
@@ -64,6 +66,8 @@ __all__ = [
     "resolve_candidates_plain",
     "sense_trace",
     "sense_trace_plain",
+    "viterbi_decode_k7",
+    "viterbi_decode_plain",
     "wideband_energy_fused",
     "wideband_energy_fused_plain",
     "wideband_energy_fused_planes",

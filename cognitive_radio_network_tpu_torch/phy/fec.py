@@ -10,8 +10,9 @@ scenarios/predictive_model.cfg:81-82).
 The byte-level host API (encode expands, decode corrects and contracts) and
 its tables are the reference's numpy code, copied.  :func:`decode_bits` is
 the batched decode of the rx path on the device: table codes are one gather
-each, and v27 is :func:`viterbi_decode`, a loop over time with all 64 states
-add-compare-selected at once, then a traceback loop.
+each, and v27 is :func:`viterbi_decode`: on a card one kernel launch, on the
+CPU a loop over time with all 64 states add-compare-selected at once, then a
+traceback loop (both in ``ops/viterbi.py``, with the code's trellis).
 """
 
 from __future__ import annotations
@@ -21,8 +22,16 @@ import functools
 import numpy as np
 import torch
 
+from cognitive_radio_network_tpu_torch.ops.viterbi import (
+    _CONV_K,
+    _conv_inverse,
+    _conv_tables,
+    frames_at_one_stride,
+    viterbi_decode_k7,
+    viterbi_decode_plain,
+)
 from cognitive_radio_network_tpu_torch.phy.bits import pack_bits, pack_bits_tensor, unpack_bits
-from cognitive_radio_network_tpu_torch.utils import profiling
+from cognitive_radio_network_tpu_torch.utils.device import on_cuda
 
 __all__ = [
     "SCHEMES",
@@ -120,40 +129,7 @@ def _h128_decode_table():
     return dec
 
 
-# --- Convolutional K=7, rate 1/2 (polys 0o171, 0o133) ----------------------
-
-_CONV_K = 7
-_CONV_POLYS = (0o171, 0o133)
-
-
-@functools.lru_cache(maxsize=None)
-def _conv_tables():
-    """next_state[state, bit], output_bits[state, bit] (2 bits packed)."""
-    ns = np.zeros((64, 2), np.int32)
-    out = np.zeros((64, 2), np.int32)
-    for s in range(64):
-        for b in range(2):
-            reg = (b << 6) | s  # newest bit in MSB of the 7-bit window
-            o = 0
-            for g in _CONV_POLYS:
-                o = (o << 1) | (bin(reg & g).count("1") & 1)
-            ns[s, b] = reg >> 1
-            out[s, b] = o
-    return ns, out
-
-
-@functools.lru_cache(maxsize=None)
-def _conv_inverse():
-    """Predecessors of each state: (inv_s, inv_b, inv_o), each (64, 2) int32:
-    the previous state, the input bit and the expected 2-bit output."""
-    ns, out = _conv_tables()
-    inv = [[] for _ in range(64)]
-    for s in range(64):
-        for b in range(2):
-            inv[ns[s, b]].append((s, b))
-    inv_s = np.array([[p[0] for p in lst] for lst in inv], np.int32)
-    inv_b = np.array([[p[1] for p in lst] for lst in inv], np.int32)
-    return inv_s, inv_b, out[inv_s, inv_b].astype(np.int32)
+# --- Convolutional K=7, rate 1/2: the trellis lives in ops/viterbi.py --------
 
 
 def conv_encode_bits(bits: np.ndarray) -> np.ndarray:
@@ -266,50 +242,24 @@ def viterbi_decode_bits(coded: np.ndarray, n_bits: int) -> np.ndarray:
     return bits[:n_bits]
 
 
-@functools.lru_cache(maxsize=16)
-def _viterbi_tables(device: torch.device):
-    inv_s, inv_b, inv_o = _conv_inverse()
-    return (
-        torch.from_numpy(inv_s.astype(np.int64)).to(device),
-        torch.from_numpy(inv_b.astype(np.uint8)).to(device),
-        torch.from_numpy(inv_o).to(device),
-    )
-
-
 def viterbi_decode(coded_bits: torch.Tensor, n_bits: int) -> torch.Tensor:
     """Batched hard-decision Viterbi: coded bits (..., 2*(n_bits+6)) -> bits
     uint8 (..., n_bits), on the device of the input.
 
-    Forward: one add-compare-select of all 64 states per time step, for
-    every frame at once; the branch metrics of all steps are computed before
-    the loop.  A tie keeps the first predecessor, as ``argmin`` does.
-    Traceback: a loop backward over the stored selectors from state 0 (the
-    tail flush)."""
-    dev = coded_bits.device
-    inv_s, inv_b, inv_o = _viterbi_tables(dev)
-    batch_shape = coded_bits.shape[:-1]
-    t_total = n_bits + _CONV_K - 1
-    profiling.count("fec.viterbi_host_steps", 2 * t_total)  # add-compare-select, then traceback
-    flat = coded_bits.reshape(-1, coded_bits.shape[-1]).to(torch.int32)
-    b = flat.shape[0]
-    syms = (flat[:, 0 : 2 * t_total : 2] << 1) | flat[:, 1 : 2 * t_total : 2]  # (B, T)
-    diff = syms[:, :, None, None] ^ inv_o  # (B, T, 64, 2)
-    bm = (diff & 1) + (diff >> 1)  # Hamming distance of the 2-bit symbols
-    pm = torch.full((b, 64), 1 << 20, dtype=torch.int32, device=dev)
-    pm[:, 0] = 0
-    sels = torch.empty((t_total, b, 64), dtype=torch.int64, device=dev)
-    for t in range(t_total):
-        cand = pm[:, inv_s] + bm[:, t]  # (B, 64, 2)
-        sel = cand[..., 1] < cand[..., 0]
-        pm = torch.where(sel, cand[..., 1], cand[..., 0])
-        sels[t] = sel
-    bits = torch.empty((t_total, b), dtype=torch.uint8, device=dev)
-    state = torch.zeros((b, 1), dtype=torch.int64, device=dev)
-    for t in range(t_total - 1, -1, -1):
-        sel = sels[t].gather(1, state)
-        bits[t] = inv_b[state, sel][:, 0]
-        state = inv_s[state, sel]
-    return bits.T[:, :n_bits].reshape(*batch_shape, n_bits)
+    A CUDA tensor takes the kernel, one launch per call
+    (:func:`~cognitive_radio_network_tpu_torch.ops.viterbi.viterbi_decode_k7`):
+    coded bits of another integer dtype are cast to uint8 first, as
+    :func:`decode_bits` does, and frames the kernel cannot read in place are
+    copied on the card.  A CPU tensor takes the plain loop
+    (:func:`~cognitive_radio_network_tpu_torch.ops.viterbi.viterbi_decode_plain`).
+    Both give the same bits: a tie keeps the first predecessor, and the
+    traceback starts from state 0 (the tail flush)."""
+    if on_cuda(coded_bits):
+        coded_bits = coded_bits.to(torch.uint8)
+        if not frames_at_one_stride(coded_bits):
+            coded_bits = coded_bits.contiguous()
+        return viterbi_decode_k7(coded_bits, n_bits)
+    return viterbi_decode_plain(coded_bits, n_bits)
 
 
 def decode_bits(scheme: str, bits: torch.Tensor, n_dec: int) -> torch.Tensor:
