@@ -1,6 +1,8 @@
 // Fused 64-channel wideband energy detector for NVIDIA Hopper (sm_90a):
 // wide streams -> 8-tap polyphase FIR per channel -> 64-point DFT over the
-// channel axis -> |y|^2 -> mean over the block_len times of a sense cycle,
+// channel axis -> |y|^2 -> mean over the block_len times of a sense cycle
+// (and, when asked, the cycle's noise floor and the energy detector's
+// decisions, and each stream's last 8 rows for the next call's history),
 // for a batch of streams in one launch.
 //
 // Replaces the Pallas TPU kernel cognitive_radio_network_tpu/ops/fused_wideband.py
@@ -29,6 +31,13 @@
 //   hist_r, hist_i  per stream (8, 64) float32 phase rows before the stream,
 //           at hist + b * hstride, or null
 //   out     (B, cycles, 64) float32, natural channel order
+//   noise, occ  optional (B, cycles) float32 and (B, cycles, 64) bytes, both
+//           or neither: per cycle the noise floor 0.5 (min + min(mean, 2 min))
+//           of its 64 energies and the decisions out > ratio * noise (0 or 1)
+//   tail_r, tail_i  optional per stream (8, 64) float32 at tail + b * tstride:
+//           the stream's last 8 rows (with those of `hist` before a stream
+//           shorter than that), the history form, so the next call over the
+//           stream's continuation takes them as its `hist`; not `hist` itself
 //
 // What bounds it: device memory, 512 bytes a row, once the issue slots
 // keep up.  The FIR is 1024 multiply-adds a row and the FFT about 1,100
@@ -39,8 +48,9 @@
 // instructions (about 120 a row a warp, 20 of them shuffles).  This design
 // (PERF.md has the measurements):
 //
-// - One launch for the batch.  The grid is one wave on the card: two
-//   blocks per SM, each a contiguous run of whole sense cycles of one stream
+// - One launch for the batch.  The grid is one wave on the card (two
+//   blocks per SM), or whole waves where a batch's streams do not divide
+//   one: each block a contiguous run of whole sense cycles of one stream
 //   (runs of a stream differ by at most one cycle).  The 7-row FIR halo
 //   before a run is read once a run, from device memory or the history.
 // - A ring of kRingRows rows in dynamic shared memory, kStages stages of
@@ -106,6 +116,12 @@ struct Args {
   const float* taps;
   const float* tw;
   float* out;
+  float* noise;        // null: energies only
+  unsigned char* occ;
+  float ratio;
+  float* tail_r;       // null: no tail
+  float* tail_i;
+  long long tstride_r, tstride_i;
   long long cycles;  // per stream
   int block_len;
 };
@@ -377,6 +393,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) fused_wideband_kernel(
   const float* hr = a.hist_r == nullptr ? nullptr : a.hist_r + b * a.hstride_r;
   const float* hi = a.hist_i == nullptr ? nullptr : a.hist_i + b * a.hstride_i;
   float* out = a.out + (static_cast<long long>(b) * a.cycles + c0) * kM;
+  float* noise = a.noise == nullptr ? nullptr : a.noise + static_cast<long long>(b) * a.cycles + c0;
+  unsigned char* occ = a.occ == nullptr ? nullptr : a.occ + (static_cast<long long>(b) * a.cycles + c0) * kM;
 
   // tile i of the run (rows i * kTileRows ...) into stage i % kStages
   auto issue = [&](int i) {
@@ -492,14 +510,49 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) fused_wideband_kernel(
         acc_lo += pq[w * kM + lane];
         acc_hi += pq[w * kM + lane + 32];
         if (++j == groups_per_cycle) {  // the cycle's last group
-          out[cyc * kM + lane] = acc_lo / static_cast<float>(bl);
-          out[cyc * kM + lane + 32] = acc_hi / static_cast<float>(bl);
+          const float e_lo = acc_lo / static_cast<float>(bl), e_hi = acc_hi / static_cast<float>(bl);
+          out[cyc * kM + lane] = e_lo;
+          out[cyc * kM + lane + 32] = e_hi;
+          if (noise != nullptr) {
+            // the cycle's sum and minimum over its 64 channels, the same bits in every lane
+            float sum = e_lo + e_hi, least = fminf(e_lo, e_hi);
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) {
+              sum += __shfl_xor_sync(0xffffffffu, sum, o);
+              least = fminf(least, __shfl_xor_sync(0xffffffffu, least, o));
+            }
+            const float nf = 0.5f * (least + fminf(sum / static_cast<float>(kM), 2.f * least));
+            const float thr = a.ratio * nf;
+            occ[cyc * kM + lane] = e_lo > thr;
+            occ[cyc * kM + lane + 32] = e_hi > thr;
+            if (lane == 0) noise[cyc] = nf;
+          }
           acc_lo = 0.f;
           acc_hi = 0.f;
           j = 0;
           ++cyc;
         }
       }
+    }
+  }
+  if (a.tail_r != nullptr && blockIdx.x == gridDim.x - 1) {
+    // the stream's last 8 rows (the last run's own, read again from L2),
+    // the history's before a shorter stream
+    float* tr = a.tail_r + b * a.tstride_r;
+    float* ti = a.tail_i + b * a.tstride_i;
+    for (int k = threadIdx.x; k < kP * kM; k += kThreads) {
+      const long long row = a.cycles * bl - kP + k / kM;
+      const int c = k % kM;
+      float re = 0.f, im = 0.f;
+      if (row >= 0) {
+        re = kInterleaved ? xr[(row * kM + c) * 2] : xr[row * kM + c];
+        im = kInterleaved ? xr[(row * kM + c) * 2 + 1] : xi[row * kM + c];
+      } else if (hr != nullptr) {
+        re = hr[(kP + row) * kM + c];
+        im = hi[(kP + row) * kM + c];
+      }
+      tr[k] = re;
+      ti[k] = im;
     }
   }
 }
@@ -527,8 +580,22 @@ int launch(const Args& a, int batch, cudaStream_t stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
     wave[dev] = max(1, sms * per_sm);
   }
-  // runs per stream: one wave over the batch, no more runs than cycles
-  const long long runs = max(1LL, min(a.cycles, (wave[dev] + batch - 1LL) / batch));
+  // runs per stream: one wave over the batch, no more runs than cycles, unless
+  // another count finishes sooner.  Blocks run wave after wave, so a launch
+  // takes (waves) x (cycles of the longest run); a count whose blocks spill
+  // a few past a wave (48 streams: 6 runs, 288 blocks on 264 slots) doubles
+  // it, and one that fills whole waves (11 runs, 528 blocks) does not.  The
+  // fewest runs among the soonest.
+  const long long w = wave[dev];
+  auto span = [&](long long r) { return (batch * r + w - 1) / w * ((a.cycles + r - 1) / r); };
+  long long runs = max(1LL, min(a.cycles, (w + batch - 1LL) / batch));
+  long long best = span(runs);
+  for (long long r = 1, most = min(a.cycles, (4 * w + batch - 1LL) / batch); r <= most; ++r) {
+    if (span(r) < best) {
+      best = span(r);
+      runs = r;
+    }
+  }
   const dim3 grid(static_cast<unsigned>(runs), static_cast<unsigned>(batch)), block(kThreads);
   fused_wideband_kernel<kInterleaved><<<grid, block, kSmemBytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -537,14 +604,18 @@ int launch(const Args& a, int batch, cudaStream_t stream) {
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).  The
-// caller checks shapes, types, strides and alignment; it allocates out.
+// caller checks shapes, types, strides and alignment; it allocates out (and
+// noise, occ and the tail where it asks for them).
 extern "C" int crn_fused_wideband(const void* xr, const void* xi, long long stride_r,
                                   long long stride_i, const void* hist_r, const void* hist_i,
                                   long long hstride_r, long long hstride_i, const void* taps,
-                                  const void* tw, void* out, int batch, long long cycles,
+                                  const void* tw, void* out, void* noise, void* occ, float ratio,
+                                  void* tail_r, void* tail_i, long long tstride_r,
+                                  long long tstride_i, int batch, long long cycles,
                                   int block_len, int interleaved, void* stream) {
   if (batch <= 0 || batch > 65535 || cycles <= 0 || block_len <= 0 ||
-      (hist_r == nullptr) != (hist_i == nullptr) || (!interleaved && xi == nullptr)) {
+      (hist_r == nullptr) != (hist_i == nullptr) || (!interleaved && xi == nullptr) ||
+      (noise == nullptr) != (occ == nullptr) || (tail_r == nullptr) != (tail_i == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{static_cast<const float*>(xr),     static_cast<const float*>(xi),
@@ -555,6 +626,11 @@ extern "C" int crn_fused_wideband(const void* xr, const void* xi, long long stri
                hstride_i,
                static_cast<const float*>(taps),   static_cast<const float*>(tw),
                static_cast<float*>(out),
+               static_cast<float*>(noise),        static_cast<unsigned char*>(occ),
+               ratio,
+               static_cast<float*>(tail_r),       static_cast<float*>(tail_i),
+               tstride_r,
+               tstride_i,
                cycles,
                block_len};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -19,7 +19,11 @@ the batch:
   ``(..., T*M)``;
 - :func:`wideband_energy_fused_planes` takes interleaved planes
   ``(..., T*M, 2)`` (``[re, im]`` pairs; a complex64 tensor is that layout
-  through ``torch.view_as_real``) and reads them in place.
+  through ``torch.view_as_real``) and reads them in place;
+- :func:`wideband_detect_fused` takes either and also returns each cycle's
+  noise floor and the energy detector's decisions (:func:`detect_rule`),
+  made in the same launch, and can write each stream's last 8 rows as the
+  history of the stream's next part (``tail_out``).
 
 Streams may lie at any one stride that is a whole number of rows (64
 samples), so evenly spaced streams need no copy.  Each runs for CUDA tensors
@@ -52,7 +56,10 @@ from cognitive_radio_network_tpu_torch.signal.fft import PRECISIONS, _mm
 from cognitive_radio_network_tpu_torch.utils.device import on_cuda
 
 __all__ = [
+    "detect_rule",
     "in_place_or_copy",
+    "tail_rows",
+    "wideband_detect_fused",
     "wideband_energy_fused",
     "wideband_energy_fused_plain",
     "wideband_energy_fused_planes",
@@ -112,39 +119,77 @@ def _energy_rows(
     return power.reshape(*lead, t_total // block_len, block_len, m).mean(dim=-2)
 
 
+def detect_rule(energy: torch.Tensor, ratio: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., C, M) cycle energies -> each cycle's noise floor (..., C, 1), a
+    sort-free estimate from the channels' mean and minimum, and the energy
+    detector's decisions (..., C, M): energy above ``ratio`` times the floor.
+    The kernel makes the same decisions from its own floor."""
+    mean_e = energy.mean(dim=-1, keepdim=True)
+    min_e = energy.amin(dim=-1, keepdim=True)
+    noise = 0.5 * (min_e + torch.minimum(mean_e, 2.0 * min_e))
+    return noise, energy > ratio * noise
+
+
+def tail_rows(streams, m: int, rows: int) -> torch.Tensor:
+    """The last ``rows`` wide rows of each stream as (..., 2, rows, M) float32
+    (plane, row, channel), from planar ``(xr, xi)`` streams (..., T*M) (a
+    copy) or interleaved planes (..., T*M, 2) (a view).  With ``rows`` 8, each
+    plane made contiguous is the kernel's history form: its 4 pair rows."""
+    if isinstance(streams, tuple):
+        n = streams[0].shape[-1]
+        return torch.stack([v[..., n - rows * m :].reshape(*v.shape[:-1], rows, m) for v in streams],
+                           dim=-3)
+    n = streams.shape[-2]
+    return streams[..., n - rows * m :, :].reshape(*streams.shape[:-2], rows, m, 2).movedim(-1, -3)
+
+
 def _stream_stride(x: torch.Tensor, n_lead: int, row: int, what: str) -> int:
     """The stride in floats between the streams of ``x`` (its first ``n_lead``
     dimensions), 0 for one stream.  Raises ValueError unless the streams lie
     at one stride that is a whole number of ``row``-float rows."""
-    dims = [(n, st) for n, st in zip(x.shape[:n_lead], x.stride()[:n_lead]) if n != 1]
+    got = _stride_of(x.shape, x.stride(), n_lead, row)
+    if isinstance(got, str):
+        raise ValueError(got.format(what=what))
+    return got
+
+
+@functools.lru_cache(maxsize=256)
+def _stride_of(shape, strides, n_lead: int, row: int):
+    """:func:`_stream_stride` of a layout, or its error's message (a launch's
+    layouts repeat from call to call, so each is worked out once)."""
+    dims = [(n, st) for n, st in zip(shape[:n_lead], strides[:n_lead]) if n != 1]
     if not dims:
         return 0
     for (_, outer), (n, inner) in zip(dims, dims[1:]):
         if outer != inner * n:
-            raise ValueError(f"the streams of {what} must lie at one stride, got strides {x.stride()}")
+            return f"the streams of {{what}} must lie at one stride, got strides {strides}"
     stride = dims[-1][1]
     if stride % row:
-        raise ValueError(
-            f"a stream stride of {stride} floats in {what} is not a whole number of rows of {row}"
-        )
+        return f"a stream stride of {stride} floats in {{what}} is not a whole number of rows of {row}"
     return stride
 
 
 def _inner_contiguous(x: torch.Tensor, n_lead: int) -> bool:
     """Whether each stream of ``x`` (its dimensions after the first
     ``n_lead``) lies contiguous in memory."""
+    return _contiguous_of(x.shape, x.stride(), n_lead)
+
+
+@functools.lru_cache(maxsize=256)
+def _contiguous_of(shape, strides, n_lead: int) -> bool:
     want = 1
-    for n, st in zip(reversed(x.shape[n_lead:]), reversed(x.stride()[n_lead:])):
+    for n, st in zip(reversed(shape[n_lead:]), reversed(strides[n_lead:])):
         if n != 1 and st != want:
             return False
         want *= n
     return True
 
 
-def _check(streams, taps, cfg, initial_history, *, planes: bool):
+def _check(streams, taps, cfg, initial_history, *, planes: bool, tail_out=None):
     """The contract of the kernel and of its plain versions: ``streams`` is
     ``(xr, xi)``, each (..., T*M), or with ``planes`` one (..., T*M, 2)
-    tensor.  Returns (leading dimensions, T, the streams' strides)."""
+    tensor; ``initial_history`` and ``tail_out`` are pair rows (..., 4, 2M).
+    Returns (leading dimensions, T, the streams' strides)."""
     m, p = cfg.num_channels, cfg.taps_per_channel
     if (m, p) != (_M, _P):
         raise ValueError(f"fused path requires M=64, P=8, got {(m, p)}")
@@ -170,11 +215,11 @@ def _check(streams, taps, cfg, initial_history, *, planes: bool):
         raise ValueError(
             f"T*M = {n_wide} must hold whole sense cycles of {cfg.block_len} x {m} samples"
         )
-    if initial_history is not None:
-        for hist in initial_history:
+    for what, pair in (("initial_history", initial_history), ("tail_out", tail_out)):
+        for hist in pair or ():
             if tuple(hist.shape) != (*lead, 4, 2 * m):
                 raise ValueError(
-                    f"initial_history rows must be (4, {2 * m}) after the streams' leading "
+                    f"{what} rows must be (4, {2 * m}) after the streams' leading "
                     f"dimensions {tuple(lead)}, got {tuple(hist.shape)}"
                 )
     return tuple(lead), n_wide // m, strides
@@ -269,12 +314,15 @@ def _kernel_input(x: torch.Tensor, what: str, device: torch.device, n_lead: int)
     return ptr
 
 
-def _launch(streams, taps, cfg, initial_history, *, planes: bool) -> torch.Tensor:
-    """One launch over every stream of ``streams`` (checked by :func:`_check`)."""
+def _launch(streams, taps, cfg, initial_history, *, planes: bool, ratio=None, tail_out=None):
+    """One launch over every stream of ``streams`` (checked by :func:`_check`):
+    the energies, or with ``ratio`` (energy, noise, occupied); with
+    ``tail_out`` each stream's last 8 rows written there too."""
     first = streams if planes else streams[0]
     dev = first.device
     taps = torch.as_tensor(taps, dtype=torch.float32, device=dev)
-    lead, t_total, strides = _check(streams, taps, cfg, initial_history, planes=planes)
+    lead, t_total, strides = _check(streams, taps, cfg, initial_history, planes=planes,
+                                    tail_out=tail_out)
     n_lead = len(lead)
     if planes:
         p_r, p_i = _kernel_input(streams, "planes", dev, n_lead), None
@@ -289,19 +337,29 @@ def _launch(streams, taps, cfg, initial_history, *, planes: bool) -> torch.Tenso
         # any stride of whole 16-byte vectors: a stream's history is 512 floats
         h_r, h_i = (_kernel_input(h, "initial_history", dev, n_lead) for h in initial_history)
         hs_r, hs_i = (_stream_stride(h, n_lead, 4, "initial_history") for h in initial_history)
+    t_r = t_i = None
+    ts_r = ts_i = 0
+    if tail_out is not None:
+        t_r, t_i = (_kernel_input(h, "tail_out", dev, n_lead) for h in tail_out)
+        ts_r, ts_i = (_stream_stride(h, n_lead, 4, "tail_out") for h in tail_out)
     taps = taps.contiguous()
     c = t_total // cfg.block_len
     batch = math.prod(lead)
     out = first.new_empty((*lead, c, _M), dtype=torch.float32)
-    if c == 0 or batch == 0:
-        return out
-    launch(
-        "crn_fused_wideband", dev,
-        p_r, p_i, s_r, s_i, h_r, h_i, hs_r, hs_i, taps.data_ptr(), _twiddles(dev).data_ptr(),
-        out.data_ptr(), batch, c, cfg.block_len, int(planes),
-    )
-    wideband_energy_fused.launches += 1
-    return out
+    noise = occ = None
+    if ratio is not None:
+        noise = first.new_empty((*lead, c, 1), dtype=torch.float32)
+        occ = first.new_empty((*lead, c, _M), dtype=torch.bool)
+    if c and batch:
+        launch(
+            "crn_fused_wideband", dev,
+            p_r, p_i, s_r, s_i, h_r, h_i, hs_r, hs_i, taps.data_ptr(), _twiddles(dev).data_ptr(),
+            out.data_ptr(), None if noise is None else noise.data_ptr(),
+            None if occ is None else occ.data_ptr(), 0.0 if ratio is None else float(ratio),
+            t_r, t_i, ts_r, ts_i, batch, c, cfg.block_len, int(planes),
+        )
+        wideband_energy_fused.launches += 1
+    return out if ratio is None else (out, noise, occ)
 
 
 def _check_precision(precision: str) -> None:
@@ -365,6 +423,56 @@ def wideband_energy_fused_planes(
             planes, taps, cfg, precision=precision, initial_history=initial_history
         )
     return _launch(planes, taps, cfg, initial_history, planes=True)
+
+
+def wideband_detect_fused(
+    streams,
+    taps,
+    cfg,
+    *,
+    precision: str = "high",
+    initial_history: tuple[torch.Tensor, torch.Tensor] | None = None,
+    tail_out: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> dict:
+    """Kernel 3 with the energy detector: planar ``(xr, xi)`` streams as
+    :func:`wideband_energy_fused` takes them, or interleaved planes as
+    :func:`wideband_energy_fused_planes` takes them, -> ``energy`` (..., C, M),
+    ``noise`` (..., C, 1) and ``occupied`` (..., C, M) by :func:`detect_rule`
+    with ``cfg.threshold_ratio``, all from one launch.
+
+    ``tail_out`` (tail_r, tail_i), each (..., 4, 2M) float32 like
+    ``initial_history`` and apart from it, receives each stream's last 8
+    rows, which are the history of the stream's next part.  The kernel's
+    noise floor sums the channels in another order than ``torch.mean``, so
+    it may differ from :func:`detect_rule` on the same energies by a
+    rounding; its decisions follow its own floor.  CPU tensors run the plain
+    versions and :func:`detect_rule`; a launch is counted as the energy
+    wrappers count theirs."""
+    _check_precision(precision)
+    planes = not isinstance(streams, tuple)
+    if planes:
+        streams = _as_planes(streams)
+    first = streams if planes else streams[0]
+    ratio = cfg.threshold_ratio
+    if on_cuda(first):
+        energy, noise, occ = _launch(streams, taps, cfg, initial_history, planes=planes,
+                                     ratio=ratio, tail_out=tail_out)
+        return {"energy": energy, "noise": noise, "occupied": occ}
+    taps = torch.as_tensor(taps, dtype=torch.float32, device=first.device)
+    _check(streams, taps, cfg, initial_history, planes=planes, tail_out=tail_out)
+    xr, xi = (streams[..., 0], streams[..., 1]) if planes else streams
+    energy = _plain(xr, xi, taps, cfg, precision, initial_history)
+    if tail_out is not None:
+        rows = tail_rows(streams, _M, min(_P, xr.shape[-1] // _M))
+        if rows.shape[-2] < _P:  # a stream shorter than 8 rows: the history's rows before it
+            hist = (torch.zeros_like(tail_out[0]), torch.zeros_like(tail_out[1])) \
+                if initial_history is None else initial_history
+            before = torch.stack([h.reshape(*h.shape[:-2], _P, _M) for h in hist], dim=-3)
+            rows = torch.cat([before, rows], dim=-2)[..., rows.shape[-2]:, :]
+        for plane, out in enumerate(tail_out):
+            out.copy_(rows[..., plane, :, :].reshape(out.shape))
+    noise, occ = detect_rule(energy, ratio)
+    return {"energy": energy, "noise": noise, "occupied": occ}
 
 
 wideband_energy_fused.launches = 0

@@ -47,6 +47,7 @@ whole sense cycles, has no counterpart: such a shape raises ValueError
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -54,7 +55,10 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from cognitive_radio_network_tpu_torch.ops.fused_wideband import (
     _energy_rows,
+    detect_rule,
     in_place_or_copy,
+    tail_rows,
+    wideband_detect_fused,
     wideband_energy_fused,
     wideband_energy_fused_planes,
 )
@@ -62,6 +66,7 @@ from cognitive_radio_network_tpu_torch.parallel.halo import left_tail
 from cognitive_radio_network_tpu_torch.parallel.mesh import block, block_range
 from cognitive_radio_network_tpu_torch.signal.channelizer import polyphase_taps
 from cognitive_radio_network_tpu_torch.signal.iq import split_iq
+from cognitive_radio_network_tpu_torch.utils import profiling
 
 __all__ = [
     "WidebandConfig",
@@ -96,6 +101,7 @@ def wideband_energy_packed(
     cfg: WidebandConfig,
     *,
     precision: str = "high",
+    history: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Planar wide stream -> per-cycle channel energy, in plain PyTorch.
 
@@ -106,15 +112,17 @@ def wideband_energy_packed(
     Energy only: the channelized IQ is never materialized.
 
     xr/xi: (T*M,) float32, or (..., T*M) with leading batch dimensions, each
-    row a stream of its own whose FIR starts from rest.  Returns (C, M) or
-    (..., C, M) with C = T / block_len.
+    row a stream of its own whose FIR starts from rest, or with ``history``
+    ((..., P-1, 2M): the last P-1 phase rows before each stream, real plane
+    then imaginary, as :func:`_history` gives them) from those rows.  Returns
+    (C, M) or (..., C, M) with C = T / block_len.
     """
     m = cfg.num_channels
     taps = torch.as_tensor(taps, dtype=torch.float32, device=xr.device)
     t_total = xr.shape[-1] // m
     if xr.shape[-1] % m or t_total % cfg.block_len:
         raise ValueError(f"T={t_total} must be a multiple of block_len")
-    return _energy_rows(xr, xi, taps, cfg.block_len, None, precision)
+    return _energy_rows(xr, xi, taps, cfg.block_len, history, precision)
 
 
 def _use_fused(cfg: WidebandConfig, t_total: int, use_fused: bool | None) -> bool:
@@ -176,12 +184,81 @@ def wideband_sense(
             out[key] = out[key][..., lo:hi]
         return out
     streams = _as_streams(planes)
-    t_total = _check_shard(streams, cfg)
-    if _use_fused(cfg, t_total, use_fused):
-        energy = _fused_energy(streams, taps, cfg, cfg.precision)
-    else:
-        energy = wideband_energy_packed(*split_iq(streams), taps, cfg, precision=cfg.precision)
-    return _decide(energy, cfg)
+    return _one_device(streams, _check_shard(streams, cfg), taps, cfg, use_fused)
+
+
+def _one_device(streams, t_total, taps, cfg, use_fused, carry=None) -> dict:
+    """Energies and decisions of streams of T=``t_total`` on their device, the
+    FIR from rest or, with ``carry`` (a :class:`_Carry`), from the rows it
+    holds; the streams' last rows then go into ``carry`` for the next call.
+    The fused path decides in the kernel's launch, and writes the rows there
+    too."""
+    with profiling.span("wideband.energy"):
+        fused = _use_fused(cfg, t_total, use_fused)
+        hist = None if carry is None else carry.history(fused)
+        if fused:
+            out = _fused_detect(streams, taps, cfg, hist, None if carry is None else carry.target())
+        else:
+            energy = wideband_energy_packed(
+                *split_iq(streams), taps, cfg, precision=cfg.precision, history=hist
+            )
+    if not fused:
+        with profiling.span("wideband.decide"):
+            out = _decide(energy, cfg)
+    if carry is not None:
+        with profiling.span("wideband.carry"):
+            carry.advance(streams, t_total, written=fused)
+    return out
+
+
+def _history(tail: torch.Tensor, fused: bool, p: int):
+    """The FIR history each energy path takes, from the (..., 2, R, M) rows
+    before each stream (:func:`..ops.fused_wideband.tail_rows`): for kernel 3
+    the last 8 rows of each plane as its 4 pair rows, ``(hist_r, hist_i)``
+    each (..., 4, 2M) (views of a contiguous ``tail``); for the plain path
+    the last P-1 rows, (..., P-1, 2M) real then imaginary."""
+    r, m = tail.shape[-2], tail.shape[-1]
+    if fused:
+        pairs = tail[..., r - 8 :, :].contiguous().reshape(*tail.shape[:-2], 4, 2 * m)
+        return pairs[..., 0, :, :], pairs[..., 1, :, :]
+    return torch.cat([tail[..., 0, r - (p - 1) :, :], tail[..., 1, r - (p - 1) :, :]], dim=-1)
+
+
+class _Carry:
+    """The rows a continuous stream carries from call to call: two buffers of
+    (..., 2, R, M) float32 (R = 8, or P-1 where that is more), one holding
+    the rows before this call's streams, the other taking their last rows,
+    which swap after each call.  Kernel 3 writes the rows in its launch; the
+    plain path copies them on the device after it.  Neither synchronizes."""
+
+    def __init__(self, lead, like: torch.Tensor, m: int, p: int):
+        self.m, self.p, self.rows = m, p, max(8, p - 1)
+        self.bufs = [like.new_zeros((*lead, 2, self.rows, m), dtype=torch.float32) for _ in range(2)]
+        # the kernel's pair-row views of each buffer, made once
+        self.pairs = [_history(b, True, p) for b in self.bufs] if self.rows == 8 else None
+        self.k, self.carried = 0, False
+
+    def history(self, fused: bool):
+        """The rows before this call's streams in the form the path takes, or
+        None before the first call (from rest)."""
+        if not self.carried:
+            return None
+        return self.pairs[self.k] if fused else _history(self.bufs[self.k], False, self.p)
+
+    def target(self):
+        """The kernel's ``tail_out``: the other buffer's pair rows."""
+        return self.pairs[1 - self.k]
+
+    def advance(self, streams, t_total: int, *, written: bool) -> None:
+        """The streams' last rows into the other buffer (unless the kernel
+        ``written`` them; before a call shorter than R rows, the rows before
+        it fill the rest), and swap."""
+        src, dst = self.bufs[self.k], self.bufs[1 - self.k]
+        if not written:
+            rows = min(self.rows, t_total)
+            new = tail_rows(streams, self.m, rows)
+            dst.copy_(new if rows == self.rows else torch.cat([src, new], dim=-2)[..., rows:, :])
+        self.k, self.carried = 1 - self.k, True
 
 
 def _as_streams(planes):
@@ -215,13 +292,20 @@ def _fused_energy(streams, taps, cfg, precision, initial_history=None) -> torch.
     )
 
 
+def _fused_detect(streams, taps, cfg, initial_history=None, tail_out=None) -> dict:
+    """Kernel 3 with its decisions (the plain versions on the CPU) on planar
+    or interleaved streams: one launch for the batch, interleaved planes
+    read in place."""
+    if not isinstance(streams, tuple):
+        streams = in_place_or_copy(streams, planes=True)
+    return wideband_detect_fused(streams, taps, cfg, precision=cfg.precision,
+                                 initial_history=initial_history, tail_out=tail_out)
+
+
 def _decide(energy: torch.Tensor, cfg: WidebandConfig) -> dict:
     """Noise floor (a sort-free estimate from the channels' mean and
     minimum) and the energy detector's decisions."""
-    mean_e = energy.mean(dim=-1, keepdim=True)
-    min_e = energy.amin(dim=-1, keepdim=True)
-    noise = 0.5 * (min_e + torch.minimum(mean_e, 2.0 * min_e))
-    occupied = energy > cfg.threshold_ratio * noise
+    noise, occupied = detect_rule(energy, cfg.threshold_ratio)
     return {"energy": energy, "noise": noise, "occupied": occupied}
 
 
@@ -259,10 +343,8 @@ def _packed_block(streams, taps, mesh, cfg, time_axis, precision) -> torch.Tenso
     m, p = cfg.num_channels, cfg.taps_per_channel
     _check_shard(streams, cfg)
     xr_l, xi_l = split_iq(streams)
-    lead = xr_l.shape[:-1]
-    rows = [v[..., xr_l.shape[-1] - (p - 1) * m :].reshape(*lead, p - 1, m) for v in (xr_l, xi_l)]
-    hist = left_tail(torch.cat(rows, dim=-1).float(), p - 1, mesh, time_axis, axis=-2)
-    return _energy_rows(xr_l, xi_l, taps, cfg.block_len, hist, precision)
+    tail = left_tail(tail_rows((xr_l, xi_l), m, p - 1), p - 1, mesh, time_axis, axis=-2)
+    return _energy_rows(xr_l, xi_l, taps, cfg.block_len, _history(tail, False, p), precision)
 
 
 def _fused_block(streams, taps, mesh, cfg, time_axis, precision) -> torch.Tensor:
@@ -272,15 +354,8 @@ def _fused_block(streams, taps, mesh, cfg, time_axis, precision) -> torch.Tensor
     m = cfg.num_channels
     t_local = _check_shard(streams, cfg)
     _use_fused(cfg, t_local, True)  # raises on a shape the kernel does not take
-    if isinstance(streams, tuple):
-        xr_l, xi_l = streams
-        n = xr_l.shape[-1]
-        tails = torch.stack([xr_l[..., n - 8 * m :], xi_l[..., n - 8 * m :]], dim=-2)
-    else:
-        tails = streams[..., streams.shape[-2] - 8 * m :, :].movedim(-1, -2).contiguous()
-    lead = tails.shape[:-2]
-    hist = left_tail(tails.reshape(*lead, 2, 4, 2 * m), 4, mesh, time_axis, axis=-2)
-    return _fused_energy(streams, taps, cfg, precision, (hist[..., 0, :, :], hist[..., 1, :, :]))
+    tail = left_tail(tail_rows(streams, m, 8), 8, mesh, time_axis, axis=-2)
+    return _fused_energy(streams, taps, cfg, precision, _history(tail, True, cfg.taps_per_channel))
 
 
 def sharded_wideband_energy_packed(
@@ -345,6 +420,7 @@ def _sharded_sense(planes, taps, cfg, mesh, batch_axis, use_fused) -> dict:
 def make_wideband_fn(
     cfg: WidebandConfig,
     *,
+    continuous: bool = False,
     mesh: DeviceMesh | None = None,
     batch_axis: str | None = None,
     device="cuda",
@@ -355,22 +431,64 @@ def make_wideband_fn(
     mesh it moves the input to ``device`` first if it lies elsewhere; with
     ``mesh`` (and ``batch_axis`` for a batch) each rank is given the whole
     input and moves only its block there, and ``fn`` returns the rank's block
-    of the outputs."""
+    of the outputs.
+
+    Each call starts every stream from rest unless ``continuous``: then each
+    call continues the streams of the call before it.  ``fn`` keeps the last
+    rows of each stream (8 wide rows, or P-1 where that is more) in buffers
+    of its own on the device, written by the kernel's launch (the plain path
+    copies them after it, on the current stream), with no host
+    synchronization, and feeds them to the next call as the FIR's history,
+    so any split of a stream into calls of whole cycles gives the energies
+    and decisions of one call over the whole stream.  The first call fixes
+    the batch shape (the streams' leading dimensions); another raises
+    ValueError until ``fn.reset()`` returns every stream to rest.
+    ``continuous`` over a mesh raises NotImplementedError.
+    """
+    if continuous and mesh is not None:
+        raise NotImplementedError("a continuous wideband stream runs on one device, not over a mesh")
     device = torch.device(device)
     taps = torch.from_numpy(cfg.taps()).to(device)
+    state = {"carry": None, "lead": None}  # the carried rows (a _Carry); the batch shape
 
     def place(x):
         x = torch.as_tensor(x)
         return x if mesh is not None else x.to(device)
 
+    def reset() -> None:
+        state["carry"] = state["lead"] = None
+
     @torch.no_grad()
     def fn(planes, *, use_fused: bool | None = None):
-        if isinstance(planes, (tuple, list)):
-            planes = tuple(place(v) for v in planes)
-        else:
-            planes = place(planes)
-        return wideband_sense(
-            planes, taps, cfg, mesh=mesh, batch_axis=batch_axis, use_fused=use_fused
-        )
+        with profiling.span("wideband.call"):
+            with profiling.span("wideband.place"):
+                if isinstance(planes, (tuple, list)):
+                    planes = tuple(place(v) for v in planes)
+                else:
+                    planes = place(planes)
+            if not continuous:
+                out = wideband_sense(
+                    planes, taps, cfg, mesh=mesh, batch_axis=batch_axis, use_fused=use_fused
+                )
+                profiling.count("wideband.cycles", out["noise"].numel())
+                return out
+            streams = _as_streams(planes)
+            first = streams[0] if isinstance(streams, tuple) else streams
+            lead = first.shape[:-1] if isinstance(streams, tuple) else first.shape[:-2]
+            if state["lead"] is None:
+                state["lead"] = lead
+                state["carry"] = _Carry(lead, first, cfg.num_channels, cfg.taps_per_channel)
+            elif lead != state["lead"]:
+                raise ValueError(
+                    f"a continuous call takes the batch shape {state['lead']} of the calls before "
+                    f"it, got {lead}; reset() to start other streams"
+                )
+            carry = state["carry"]
+            carried = carry.carried
+            out = _one_device(streams, _check_shard(streams, cfg), taps, cfg, use_fused, carry)
+            profiling.count("wideband.cycles", out["noise"].numel())
+            profiling.count("wideband.carried_streams", math.prod(lead) if carried else 0)
+            return out
 
+    fn.reset = reset
     return fn

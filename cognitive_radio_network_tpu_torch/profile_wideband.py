@@ -3,9 +3,14 @@
     python -m cognitive_radio_network_tpu_torch.profile_wideband [--json PATH]
 
 Shapes: one planar stream at T = 131,072, 262,144 and 524,288 rows of 64
-channels (``WidebandConfig()``, ``block_len`` 128), and the wideband train
+channels (``WidebandConfig()``, ``block_len`` 128), the wideband train
 step's batch of 4 streams of T = 65,536 as planar streams and as interleaved
-(B, T*64, 2) planes.  Each is timed three ways, on inputs made on the card:
+(B, T*64, 2) planes, and the ``wideband64`` deployment's calls: 48
+interleaved streams of T = 20,480 and 40,960 (160 and 320 cycles) with a
+history per stream, energies only and, where the tree has
+``wideband_detect_fused``, as a continuous ``make_wideband_fn`` call runs
+them: with the decisions and each stream's tail written in the launch.
+Each is timed three ways, on inputs made on the card:
 
 * the kernel's time on the card per call, from a ``torch.profiler`` trace
   (the kernels whose name holds ``fused_wideband``), and every device
@@ -49,14 +54,20 @@ FP32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
 L2_BYTES = 50e6
 SINGLE_T = (131_072, 262_144, 524_288)
 BATCH, BATCH_T = 4, 65_536  # the wideband train step's batch (chip_smoke.py phase 25)
+FLEET, FLEET_T = 48, (20_480, 40_960)  # the wideband64 deployment's calls (crn_bench/configs/wideband64.json)
 
 
-def wide_bound(streams: int, t: int, block_len: int = 128, m: int = 64) -> tuple[float, str, int]:
+def wide_bound(streams: int, t: int, block_len: int = 128, m: int = 64,
+               history: bool = False, detect: bool = False) -> tuple[float, str, int]:
     """(ms, "bytes" or "operations", bytes) of the least time for ``streams``
-    streams of T=``t``: planes read once, taps read and energies written
-    once; per row the FIR (2 planes x 64 channels x 8 taps x 2), a 64-point
-    complex FFT (5 N log2 N) and the power (3 x 64)."""
+    streams of T=``t``: planes read once (and with ``history`` each stream's
+    8 rows before it), taps read and energies written once (with ``detect``
+    also the noise floors, the decisions and each stream's last 8 rows); per
+    row the FIR (2 planes x 64 channels x 8 taps x 2), a 64-point complex FFT
+    (5 N log2 N) and the power (3 x 64)."""
     nbytes = streams * (2 * t * m * 4 + t // block_len * m * 4) + 8 * m * 4
+    nbytes += streams * 2 * 8 * m * 4 if history else 0
+    nbytes += streams * (t // block_len * (4 + m) + 2 * 8 * m * 4) if detect else 0
     flops = streams * t * (2 * m * 8 * 2 + 5 * m * 6 + 3 * m)
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
     return (by_bytes, "bytes", nbytes) if by_bytes >= by_ops else (by_ops, "operations", nbytes)
@@ -120,7 +131,8 @@ def calls(taps, cfg) -> dict:
     if hasattr(fw, "wideband_energy_fused_planes"):
         return {
             "planar": lambda xr, xi: fw.wideband_energy_fused(xr, xi, taps, cfg),
-            "planes": lambda p: fw.wideband_energy_fused_planes(p, taps, cfg),
+            "planes": lambda p, h=None: fw.wideband_energy_fused_planes(p, taps, cfg,
+                                                                       initial_history=h),
             "tree": "one launch a call",
         }
 
@@ -153,10 +165,24 @@ def measure(dev, smi: str, tag: str = "[profile-wideband]") -> dict:
         (f"batch ({BATCH}, {BATCH_T}) interleaved", BATCH, BATCH_T,
          lambda: use["planes"](planes), lambda: planes.sum()),
     ]
+    if use["tree"] == "one launch a call":  # a tree that takes a history per stream
+        fleet = torch.randn(FLEET, max(FLEET_T) * 64, 2, generator=g, device=dev)
+        hist = tuple(torch.randn(FLEET, 4, 128, generator=g, device=dev) for _ in range(2))
+        tail = tuple(torch.empty(FLEET, 4, 128, device=dev) for _ in range(2))
+        for t in FLEET_T:
+            part = fleet[:, : t * 64]
+            cases.append((f"deployment ({FLEET}, {t}) interleaved, with history", FLEET, t,
+                          lambda p=part: use["planes"](p, hist), lambda p=part: p.sum()))
+            if hasattr(fw, "wideband_detect_fused"):
+                cases.append((f"deployment ({FLEET}, {t}) detect, with history and tail", FLEET, t,
+                              lambda p=part: fw.wideband_detect_fused(p, taps, cfg, initial_history=hist,
+                                                                      tail_out=tail),
+                              lambda p=part: p.sum()))
     scratch = torch.empty(int(64e6) // 4, device=dev)
     rows = []
     for label, streams, t, fn, yardstick in cases:
-        bound_ms, bound_by, nbytes = wide_bound(streams, t)
+        bound_ms, bound_by, nbytes = wide_bound(streams, t, history="history" in label,
+                                                detect="detect" in label)
         flush = (lambda: scratch.fill_(0.0)) if nbytes < L2_BYTES else None
         prof = profile_call(fn, flush=flush)
         ev = events_ms(fn)

@@ -1,0 +1,8 @@
+"""Idle share (%) of the device over the traced window of wideband detection:
+one less the union of device-operation intervals over the window."""
+
+from crn_bench.harness import idle_pct
+
+
+def read(rec):
+    return idle_pct(rec)
