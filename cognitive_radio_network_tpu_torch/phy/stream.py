@@ -10,9 +10,11 @@ decodes each frame under its own configuration.
 Two ways to drive it:
 
 * :meth:`StreamReceiver.process`, the host API: the residual lives on the
-  host, each block is uploaded once, the block scan runs on the device, its
-  packed record comes back in one copy, candidates are resolved on the host and
-  each payload configuration present is decoded in one batched pass;
+  host, each block is staged into a buffer kept per shape bucket and uploaded
+  once, the block scan runs on the device (on a card, replayed from a CUDA
+  graph captured once per shape: :class:`_ScanSlot`), its packed record comes
+  back in one copy, candidates are resolved on the host and each payload
+  configuration present is decoded in one batched pass;
 * :meth:`StreamReceiver.feed_device` / :meth:`StreamReceiver.flush` (and
   :meth:`StreamReceiver.process_device`, the synchronous form), the device API:
   the block's planes and all stream state live on the device and one call of
@@ -34,11 +36,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 import torch
 
-from cognitive_radio_network_tpu_torch.ops.extract import extract_window_sets
+from cognitive_radio_network_tpu_torch.ops.extract import extract_window_sets, extract_windows
 from cognitive_radio_network_tpu_torch.ops.resolve import resolve_candidates
 from cognitive_radio_network_tpu_torch.phy import crc as crc_mod
 from cognitive_radio_network_tpu_torch.phy import fec as fec_mod
@@ -343,6 +346,115 @@ def _stream_step_graph(
 
 
 # ----------------------------------------------------------------------
+# the host API's block scan: one staging buffer per shape, and on a card
+# one CUDA graph per shape
+# ----------------------------------------------------------------------
+
+
+class _ScanCache:
+    """The process's block-scan slots, one per (device, layout, bucket) and
+    shared by every receiver of the layout, and per card the one memory pool
+    and capture stream of their graphs.  The graphs share the pool (replays
+    are serialised by ``lock``, and each output is read before it is
+    released), and one stream lets each capture reuse its predecessors' freed
+    blocks.
+    :meth:`StreamReceiver.process` holds ``lock`` from the block's staging to
+    its decode's last read: the slot's buffers and its graph's output are in
+    use until then."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.slots: dict[tuple, _ScanSlot] = {}
+        self._pools: dict[torch.device, tuple] = {}  # card -> (memory pool, capture stream)
+
+    def slot(self, device: torch.device, layout: OFDMFrameGen, bucket: int) -> _ScanSlot:
+        key = (device, layout, bucket)
+        slot = self.slots.get(key)
+        if slot is None:
+            pool = None
+            if device.type == "cuda":
+                pool = self._pools.get(device)
+                if pool is None:
+                    pool = self._pools[device] = (torch.cuda.graph_pool_handle(), torch.cuda.Stream(device))
+            slot = self.slots[key] = _ScanSlot(device, bucket, pool)
+        return slot
+
+    def clear(self) -> None:
+        """Drop every slot and graph.  Later slots capture into a new pool:
+        a pool whose graphs are all gone takes no new ones."""
+        self.slots.clear()
+        self._pools.clear()
+
+
+_scan_cache = _ScanCache()
+
+
+class _ScanSlot:
+    """The block scan's buffers for one (device, layout, bucket).
+
+    A block is staged into ``host`` (2, bucket) float32 planes, zero past its
+    samples.  On the CPU ``host`` is the scan's input; on a card it is pinned
+    and goes to the device ``planes`` in one asynchronous copy, with
+    ``n_valid`` (0-d int64) filled on the device.  The scan there runs eagerly
+    once per ``k`` (which fills the device tables' caches and warms cuBLAS),
+    then is captured as a CUDA graph over these static inputs and replayed on
+    every later call: the same kernels on the same inputs, so the same
+    record.  A replay adds the extract kernel's launches in the graph to
+    ``extract_windows.launches``, as the eager scan's wrapper calls do."""
+
+    def __init__(self, device: torch.device, bucket: int, pool: tuple | None):
+        self.pool = pool  # the card's (memory pool, capture stream); None on the CPU
+        self.graphs: dict[int, tuple] = {}  # k -> (graph, its packed record, its extract launches)
+        if device.type == "cuda":
+            self.planes = torch.empty((2, bucket), dtype=torch.float32, device=device)
+            self.n_valid = torch.zeros((), dtype=torch.int64, device=self.planes.device)
+            self.host = torch.empty((2, bucket), dtype=torch.float32, pin_memory=True)
+        else:
+            self.host = self.planes = torch.zeros((2, bucket), dtype=torch.float32)
+            self.n_valid = None
+
+    def stage(self, buf: np.ndarray) -> None:
+        n = len(buf)
+        h = self.host.numpy()
+        h[0, :n] = buf.real
+        h[1, :n] = buf.imag
+        h[:, n:] = 0.0  # a longer block's samples may lie there
+
+    def upload(self, n: int) -> torch.Tensor:
+        if self.n_valid is not None:
+            self.planes.copy_(self.host, non_blocking=True)
+            self.n_valid.fill_(n)
+        return self.planes
+
+    def scan(self, layout: OFDMFrameGen, n: int, k: int) -> torch.Tensor:
+        """The packed scan record (:func:`_scan_block_graph_packed`) of the
+        uploaded block of ``n`` samples."""
+        rr, ri = self.planes[0], self.planes[1]
+        if self.n_valid is None:
+            return _scan_block_graph_packed(layout, rr, ri, n, k=k)
+        entry = self.graphs.get(k)
+        if entry is not None:
+            graph, packed, launches = entry
+            graph.replay()
+            extract_windows.launches += launches
+            profiling.count("rx.scan_graph_replays")
+            return packed
+        packed = _scan_block_graph_packed(layout, rr, ri, self.n_valid, k=k)
+        before = extract_windows.launches
+        graph = torch.cuda.CUDAGraph()
+        handle, side = self.pool
+        # the capture binds this thread alone: another may allocate, launch
+        # and synchronize on the card meanwhile (a node's transmit chain does)
+        with torch.cuda.graph(graph, pool=handle, stream=side, capture_error_mode="thread_local"):
+            out = _scan_block_graph_packed(layout, rr, ri, self.n_valid, k=k)
+        launches = extract_windows.launches - before
+        extract_windows.launches -= launches  # the capture ran nothing on the card
+        self.graphs[k] = (graph, out, launches)
+        profiling.count("rx.scan_graph_captures")
+        return packed
+
+
+# ----------------------------------------------------------------------
 # adaptive streaming receiver
 # ----------------------------------------------------------------------
 
@@ -436,7 +548,7 @@ class StreamReceiver:
         Returns a list of dicts: {offset, stats, header, payload} with
         ``offset`` the absolute sample index of the frame start.
         """
-        with profiling.span("rx.process"):
+        with profiling.span("rx.process"), _scan_cache.lock:
             with profiling.span("rx.stage"):
                 buf = np.concatenate([self._residual, self._host_block(iq)])
                 base = self._residual_offset
@@ -454,13 +566,12 @@ class StreamReceiver:
                 # the bucket, so both packages scan the same shape.
                 bucket = _bucket_len(n, 4 * self.cfg.num_subcarriers)
                 keff = min(self.max_frames_per_block, max(4, -(-bucket // self.prefix_len)))
-                host = np.zeros((2, bucket), np.float32)
-                host[0, :n] = buf.real
-                host[1, :n] = buf.imag
+                slot = _scan_cache.slot(self.device, self.layout, bucket)
+                slot.stage(buf)
             with profiling.span("rx.upload"):
-                planes = torch.from_numpy(host).to(self.device)  # the block's one upload
+                planes = slot.upload(n)  # the block's one upload
             with profiling.span("rx.scan"):
-                packed = _scan_block_graph_packed(self.layout, planes[0], planes[1], n, k=keff)
+                packed = slot.scan(self.layout, n, keff)
             with profiling.span("rx.scan_read"):
                 bests, peaks, cfos, _headers, phys, hdr_ok = _unpack_scan(packed.cpu().numpy())
             with profiling.span("rx.resolve"):
