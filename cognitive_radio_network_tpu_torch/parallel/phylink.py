@@ -22,8 +22,6 @@ rank: the frames come out on each.
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
@@ -39,17 +37,21 @@ from cognitive_radio_network_tpu_torch.parallel.collectives import (
 from cognitive_radio_network_tpu_torch.phy.framegen import OFDMFrameConfig, gen_for
 from cognitive_radio_network_tpu_torch.phy.framesync import (
     OFDMFrameSync,
+    _accept_fixed,
     _bucket_len,
+    _frame,
     _receive_block_graph,
     _rx_graph,
     _scan_block_graph,
     _to_numpy,
 )
 from cognitive_radio_network_tpu_torch.phy.stream import (
-    StreamReceiver,
     _bits_i32,
+    _max_residual,
     _pack_scan,
+    _payload_gen,
     _prefix_len,
+    _resolve_candidates,
     _unpack_scan,
 )
 from cognitive_radio_network_tpu_torch.signal.iq import split_iq
@@ -166,21 +168,8 @@ class ShardedFrameReceiver:
             "headers": rec[:, 8:16].astype(np.uint8),
             "payloads": rec[:, 16:].astype(np.uint8),
         }
-        frames, consumed_end = [], 0
-        for i in np.argsort(got["bests"], kind="stable"):
-            off = int(got["bests"][i])
-            if got["peaks"][i] < threshold or not got["ok"][i] or off < consumed_end:
-                continue
-            frames.append(
-                {
-                    "offset": off,
-                    "stats": self.sync._stats_from(got, int(i)),
-                    "header": got["headers"][i],
-                    "payload": got["payloads"][i],
-                }
-            )
-            consumed_end = off + gen.frame_len
-        return frames
+        return [_frame(gen, got, i, int(got["bests"][i]))
+                for i in _accept_fixed(got["bests"], got["peaks"], got["ok"], threshold, gen.frame_len)]
 
 
 class ShardedStreamReceiver:
@@ -195,8 +184,9 @@ class ShardedStreamReceiver:
     [residual | block] (top-K Schmidl&Cox, header demod, header FEC/CRC) with
     a header-prefix halo from its right neighbour; ownership is by frame
     start.  The candidates are gathered into every rank and resolved there by
-    :meth:`StreamReceiver._resolve_candidates` itself, so the acceptance
-    rules live in one place.  Decode, the O(frames) work: each rank gathers
+    :func:`..phy.stream._resolve_candidates`, the walk
+    :meth:`StreamReceiver.process` runs, so the acceptance rules live in one
+    place.  Decode, the O(frames) work: each rank gathers
     the part of every accepted frame's window that lies in its segment (the
     extract kernel), zero-masks the rest, one sum over the time axis
     assembles whole windows, and every rank decodes them, one batched pass
@@ -230,7 +220,6 @@ class ShardedStreamReceiver:
         self.mesh = mesh
         self.time_axis = time_axis
         self.k_per_shard = k_per_shard
-        self._syncs: dict[tuple, OFDMFrameSync] = {}
         # the residual store: float32 planes on the device, the stream's
         # samples from _residual_offset on
         self._res_r = torch.zeros(0, dtype=torch.float32, device=self.device)
@@ -241,16 +230,7 @@ class ShardedStreamReceiver:
 
     @property
     def max_residual(self) -> int:
-        return 4 * (self.prefix_len + 64 * self.cfg.symbol_len)
-
-    def _sync_for(self, payload_len, mod, f0, f1, check) -> OFDMFrameSync:
-        key = (payload_len, mod, f0, f1, check)
-        if key not in self._syncs:
-            cfg = dataclasses.replace(
-                self.cfg, mod_scheme=mod, fec0=f0, fec1=f1, crc_scheme=check
-            )
-            self._syncs[key] = OFDMFrameSync(cfg, payload_len, device=self.device)
-        return self._syncs[key]
+        return _max_residual(self.layout)
 
     def _keep(self, re, im, keep_from: int) -> None:
         """The residual becomes [residual | block][keep_from:]."""
@@ -303,9 +283,6 @@ class ShardedStreamReceiver:
         n = self._res_r.shape[0] + re.shape[0]
         base = self._residual_offset
         m = self.cfg.num_subcarriers
-        # position to keep from for the next block: by default a
-        # preamble-sized tail; an incomplete frame pulls it back to its start
-        keep_from = max(n - self.prefix_len, 0)
         if n < self.prefix_len + 4 * m:
             self._keep(re, im, 0)
             return []
@@ -329,13 +306,11 @@ class ShardedStreamReceiver:
         rec = all_gather(rec, self.mesh, self.time_axis).cpu().numpy()
         bests, peaks, cfos, _headers, phys, hdr_ok = _unpack_scan(rec)
 
-        accepted, consumed_end, keep_from = StreamReceiver._resolve_candidates(
-            self, bests, peaks, hdr_ok, phys, n, threshold, keep_from
+        accepted, consumed_end, keep_from, self.pending_frame = _resolve_candidates(
+            self.layout, bests, peaks, hdr_ok, phys, n, threshold
         )
         frames = self._decode_accepted(accepted, cfos, seg_r, seg_i, start, base)
-        keep_from = max(keep_from, consumed_end)
-        # never let the residual grow beyond a bound (malformed stream guard)
-        keep_from = max(keep_from, n - self.max_residual)
+        keep_from = max(keep_from, consumed_end, n - self.max_residual)
         self._keep(re, im, keep_from)
         self._residual_offset = base + keep_from
         return frames
@@ -349,8 +324,8 @@ class ShardedStreamReceiver:
         shard_len = seg_r.shape[0]
         frames = []
         for parsed, items in accepted.items():
-            sync = self._sync_for(*parsed)
-            flen = sync.gen.frame_len
+            gen = _payload_gen(self.cfg, parsed)
+            flen = gen.frame_len
             offs = torch.tensor([off for off, _ in items], dtype=torch.int64).to(self.device)
             cf = torch.from_numpy(np.asarray([cfos[i] for _, i in items], np.float32)).to(self.device)
             pad_r = torch.nn.functional.pad(seg_r, (flen, flen))
@@ -360,15 +335,7 @@ class ShardedStreamReceiver:
             gpos = offs[:, None] + torch.arange(flen, device=self.device)[None, :]
             owned = ((gpos >= start) & (gpos < start + shard_len))[None]
             wins = psum(torch.where(owned, torch.stack([wr, wi]), 0.0), self.mesh, self.time_axis)
-            out = _to_numpy(_rx_graph(sync.gen, wins[0], wins[1], cf))
-            for j, (off, _i) in enumerate(items):
-                frames.append(
-                    {
-                        "offset": base + off,
-                        "stats": sync._stats_from(out, j),
-                        "header": out["headers"][j],
-                        "payload": out["payloads"][j],
-                    }
-                )
+            out = _to_numpy(_rx_graph(gen, wins[0], wins[1], cf))
+            frames += [_frame(gen, out, j, base + off) for j, (off, _i) in enumerate(items)]
         frames.sort(key=lambda f: f["offset"])
         return frames

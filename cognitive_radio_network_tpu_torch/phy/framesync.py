@@ -103,22 +103,6 @@ class OFDMFrameSync:
 
     # -- aligned demodulation ------------------------------------------
 
-    def _stats_from(self, out: dict, i: int) -> FrameSyncStats:
-        g = self.gen
-        return FrameSyncStats(
-            evm=float(out["evm_db"][i]),
-            rssi=float(out["rssi_db"][i]),
-            cfo=float(out["cfo"][i]),
-            num_framesyms=g.num_symbols,
-            mod_scheme=self.cfg.mod_scheme,
-            mod_bps=g.bps,
-            check=self.cfg.crc_scheme,
-            fec0=self.cfg.fec0,
-            fec1=self.cfg.fec1,
-            header_valid=bool(out["hdr_ok"][i]),
-            payload_valid=bool(out["pay_ok"][i]),
-        )
-
     def demod_aligned(self, iq, cfo=None):
         """Frame-aligned IQ (B, frame_len) [complex, planes or planar] -> decoded.
 
@@ -133,7 +117,7 @@ class OFDMFrameSync:
         else:
             cfo_t = torch.as_tensor(cfo, dtype=torch.float32).to(re.device).reshape(b)
         out = _to_numpy(_rx_graph(self.gen, re, im, cfo_t))
-        stats = [self._stats_from(out, i) for i in range(b)]
+        stats = [_stats(self.gen, out, i) for i in range(b)]
         return stats, out["headers"], out["payloads"]
 
     def decode_at(self, rr, ri, offsets, cfos) -> dict:
@@ -171,21 +155,8 @@ class OFDMFrameSync:
         bests, peaks, cfos, out, ok = self.rx_block_fn(k)(re, im, n)
         bests, peaks, ok = (t.cpu().numpy() for t in (bests, peaks, ok))
         out = _to_numpy(out)
-        frames, consumed_end = [], 0
-        for i in np.argsort(bests, kind="stable"):
-            off = int(bests[i])
-            if peaks[i] < threshold or not ok[i] or off < consumed_end:
-                continue
-            frames.append(
-                {
-                    "offset": off,
-                    "stats": self._stats_from(out, int(i)),
-                    "header": out["headers"][i],
-                    "payload": out["payloads"][i],
-                }
-            )
-            consumed_end = off + self.gen.frame_len
-        return frames
+        return [_frame(self.gen, out, i, int(bests[i]))
+                for i in _accept_fixed(bests, peaks, ok, threshold, self.gen.frame_len)]
 
     def receive(self, iq, threshold: float = 0.2):
         """Detect + demod the first frame in a block (fixed config).
@@ -207,6 +178,47 @@ class OFDMFrameSync:
 
 def _to_numpy(out: dict) -> dict:
     return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _stats(gen: OFDMFrameGen, out: dict, j: int) -> FrameSyncStats:
+    """Row ``j`` of a fetched receive record (numpy columns, as
+    :func:`_rx_graph` names them) as the stats of a frame made by ``gen``."""
+    cfg = gen.cfg
+    return FrameSyncStats(
+        evm=float(out["evm_db"][j]),
+        rssi=float(out["rssi_db"][j]),
+        cfo=float(out["cfo"][j]),
+        num_framesyms=gen.num_symbols,
+        mod_scheme=cfg.mod_scheme,
+        mod_bps=gen.bps,
+        check=cfg.crc_scheme,
+        fec0=cfg.fec0,
+        fec1=cfg.fec1,
+        header_valid=bool(out["hdr_ok"][j]),
+        payload_valid=bool(out["pay_ok"][j]),
+    )
+
+
+def _frame(gen: OFDMFrameGen, out: dict, j: int, offset: int) -> dict:
+    """Row ``j`` of a fetched receive record as the frame every receiver
+    returns: {offset, stats, header, payload}."""
+    return {"offset": offset, "stats": _stats(gen, out, j),
+            "header": out["headers"][j], "payload": out["payloads"][j]}
+
+
+def _accept_fixed(bests, peaks, ok, threshold: float, frame_len: int) -> list[int]:
+    """The fixed-config receive's acceptance walk: the candidates in offset
+    order (stable), each kept if its peak clears ``threshold``, it is ``ok``
+    and it starts at or past the end of the last kept frame.  Returns the
+    kept candidates' indices in offset order."""
+    kept, consumed_end = [], 0
+    for i in np.argsort(bests, kind="stable"):
+        off = int(bests[i])
+        if peaks[i] < threshold or not ok[i] or off < consumed_end:
+            continue
+        kept.append(int(i))
+        consumed_end = off + frame_len
+    return kept
 
 
 @functools.lru_cache(maxsize=32)

@@ -10,11 +10,12 @@ decodes each frame under its own configuration.
 Two ways to drive it:
 
 * :meth:`StreamReceiver.process`, the host API: the residual lives on the
-  host, each block is staged into a buffer kept per shape bucket and uploaded
-  once, the block scan runs on the device (on a card, replayed from a CUDA
-  graph captured once per shape: :class:`_ScanSlot`), its packed record comes
-  back in one copy, candidates are resolved on the host and each payload
-  configuration present is decoded in one batched pass;
+  host as float32 planes, it and each block are staged into a buffer kept per
+  shape bucket and uploaded once, the block scan runs on the device (on a
+  card, replayed from a CUDA graph captured once per shape:
+  :class:`_ScanSlot`), its packed record comes back in one copy, candidates
+  are resolved on the host and each payload configuration present is decoded
+  in one batched pass;
 * :meth:`StreamReceiver.feed_device` / :meth:`StreamReceiver.flush` (and
   :meth:`StreamReceiver.process_device`, the synchronous form), the device API:
   the block's planes and all stream state live on the device and one call of
@@ -53,8 +54,8 @@ from cognitive_radio_network_tpu_torch.phy.framegen import (
     unpack_phy_header,
 )
 from cognitive_radio_network_tpu_torch.phy.framesync import (
-    OFDMFrameSync,
     _bucket_len,
+    _frame,
     _prefix_len,
     _refine_len,
     _rows,
@@ -69,6 +70,65 @@ from cognitive_radio_network_tpu_torch.signal.iq import split_iq
 from cognitive_radio_network_tpu_torch.utils import profiling
 
 __all__ = ["StreamReceiver"]
+
+
+@functools.lru_cache(maxsize=512)
+def _payload_gen(cfg: OFDMFrameConfig, key: tuple) -> OFDMFrameGen:
+    """The generator of payload configuration ``key`` = (payload_len, mod,
+    fec0, fec1, crc), as a PHY header names it, on ``cfg``'s OFDM geometry:
+    one per process, as :func:`gen_for` keeps it."""
+    payload_len, mod, f0, f1, check = key
+    return gen_for(dataclasses.replace(cfg, mod_scheme=mod, fec0=f0, fec1=f1, crc_scheme=check),
+                   payload_len)
+
+
+def _max_residual(layout: OFDMFrameGen) -> int:
+    """The most samples an adaptive receiver carries from one block to the
+    next (a malformed stream's guard)."""
+    return 4 * (_prefix_len(layout) + 64 * layout.cfg.symbol_len)
+
+
+def _resolve_candidates(layout: OFDMFrameGen, bests, peaks, hdr_ok, phys, n: int, threshold: float):
+    """The adaptive receive's acceptance walk on the host, over a block scan's
+    fetched candidates in a buffer of ``n`` samples: order them by position,
+    resolve each frame's configuration from its decoded PHY header, group the
+    accepted ``(offset, candidate)`` pairs by configuration, and track the
+    point an incomplete frame pulls the residual back to.
+
+    Returns (accepted, consumed_end, keep_from, incomplete)."""
+    prefix = _prefix_len(layout)
+    # by default the residual keeps a preamble-sized tail; an incomplete frame
+    # pulls it back to its start
+    keep_from = max(n - prefix, 0)
+    accepted: dict[tuple, list[tuple[int, int]]] = {}  # key -> [(off, cand)]
+    consumed_end = 0
+    incomplete = False
+    attempted = 0
+    for i in np.argsort(bests, kind="stable"):
+        off, pk = int(bests[i]), float(peaks[i])
+        if pk < threshold or off < consumed_end:
+            continue
+        attempted += 1
+        if off + prefix > n:
+            # header region incomplete; wait for more samples
+            keep_from = min(keep_from, off)
+            incomplete = True
+            break
+        if not hdr_ok[i]:
+            continue  # false peak (or corrupted header): skip
+        parsed = unpack_phy_header(phys[i])
+        if parsed is None:
+            continue
+        flen = _payload_gen(layout.cfg, parsed).frame_len
+        if off + flen > n:
+            keep_from = min(keep_from, off)
+            incomplete = True
+            break  # frame incomplete; resume next block
+        accepted.setdefault(parsed, []).append((off, int(i)))
+        consumed_end = off + flen
+    profiling.count("rx.candidates_attempted", attempted)
+    profiling.count("rx.candidates_accepted", sum(map(len, accepted.values())))
+    return accepted, consumed_end, keep_from, incomplete
 
 
 # ----------------------------------------------------------------------
@@ -359,8 +419,8 @@ class _ScanCache:
     released), and one stream lets each capture reuse its predecessors' freed
     blocks.
     :meth:`StreamReceiver.process` holds ``lock`` from the block's staging to
-    its decode's last read: the slot's buffers and its graph's output are in
-    use until then."""
+    its decode's last read and its residual's copy out of the slot: the slot's
+    buffers and its graph's output are in use until then."""
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -413,12 +473,15 @@ class _ScanSlot:
             self.host = self.planes = torch.zeros((2, bucket), dtype=torch.float32)
             self.n_valid = None
 
-    def stage(self, buf: np.ndarray) -> None:
-        n = len(buf)
+    def stage(self, res: np.ndarray, re: torch.Tensor, im: torch.Tensor) -> None:
+        """Stage [residual | block]: ``res`` (2, r) host planes, then the
+        block's planes (on any device)."""
+        r, n = res.shape[1], res.shape[1] + re.shape[0]
         h = self.host.numpy()
-        h[0, :n] = buf.real
-        h[1, :n] = buf.imag
+        h[:, :r] = res
         h[:, n:] = 0.0  # a longer block's samples may lie there
+        self.host[0, r:n].copy_(re)
+        self.host[1, r:n].copy_(im)
 
     def upload(self, n: int) -> torch.Tensor:
         if self.n_valid is not None:
@@ -479,17 +542,17 @@ class StreamReceiver:
         self.device = torch.device(device)
         self.layout = gen_for(cfg, 1)
         self.prefix_len = _prefix_len(self.layout)
-        self._syncs: dict[tuple, OFDMFrameSync] = {}
         self.max_frames_per_block = max_frames_per_block
-        self._residual = np.zeros(0, np.complex64)
-        self._residual_offset = 0  # absolute sample index of residual[0]
+        # the host API's residual: (2, r) float32 planes on the host
+        self._residual = np.zeros((2, 0), np.float32)
+        self._residual_offset = 0  # absolute sample index of the residual's first sample
         # state of the device API: residual planes and length live on the
         # device and chain from step to step
         self._res_r_d = None
         self._res_i_d = None
         self._res_len_d = None
         # speculative-decode config history: the <= 2 most recently seen
-        # payload configs (keys as in _sync_for); the first guess is the
+        # payload configs (keys as in _payload_gen); the first guess is the
         # constructor's config at the reference's 256-byte packet size
         # (include/crts.hpp:192-194)
         self._spec_lru: list[tuple] = [
@@ -507,28 +570,12 @@ class StreamReceiver:
         # tail is still arriving): a squelch must not carry/skip past it
         self.pending_frame = False
 
-    def _sync_for(self, payload_len, mod, f0, f1, check) -> OFDMFrameSync:
-        key = (payload_len, mod, f0, f1, check)
-        if key not in self._syncs:
-            cfg = dataclasses.replace(
-                self.cfg, mod_scheme=mod, fec0=f0, fec1=f1, crc_scheme=check
-            )
-            self._syncs[key] = OFDMFrameSync(cfg, payload_len, device=self.device)
-        return self._syncs[key]
-
-    @staticmethod
-    def _host_block(iq) -> np.ndarray:
-        """Any IQ form (complex, (N, 2) planes, an (re, im) pair; numpy or
-        tensors on any device) -> host complex64."""
-        re, im = split_iq(iq)
-        return (re.cpu().numpy() + 1j * im.cpu().numpy()).astype(np.complex64)
-
     def skip(self, n: int) -> None:
         """Advance the stream cursor past ``n`` squelched samples without
         scanning them: the residual is discarded (by construction it carries
         no frame) and absolute offsets stay consistent across the gap."""
-        self._residual_offset += len(self._residual) + int(n)
-        self._residual = np.zeros(0, np.complex64)
+        self._residual_offset += self._residual.shape[1] + int(n)
+        self._residual = np.zeros((2, 0), np.float32)
         self.pending_frame = False
 
     def carry(self, iq) -> None:
@@ -536,11 +583,12 @@ class StreamReceiver:
         eighth-block + prefix tail in the residual: a frame whose head starts
         near the end of a cold block still decodes whole when the next hot
         block arrives."""
-        block = self._host_block(iq)
-        buf = np.concatenate([self._residual, block])
-        keep = min(self.prefix_len + len(block) // 8, len(buf))
-        self._residual_offset += len(buf) - keep
-        self._residual = buf[len(buf) - keep :]
+        block = torch.stack(split_iq(iq)).cpu().numpy()
+        buf = np.concatenate([self._residual, block], axis=1)
+        n = buf.shape[1]
+        keep = min(self.prefix_len + block.shape[1] // 8, n)
+        self._residual_offset += n - keep
+        self._residual = buf[:, n - keep :]
 
     def process(self, iq, threshold: float = 0.2):
         """Append a block and extract every decodable frame.
@@ -550,14 +598,12 @@ class StreamReceiver:
         """
         with profiling.span("rx.process"), _scan_cache.lock:
             with profiling.span("rx.stage"):
-                buf = np.concatenate([self._residual, self._host_block(iq)])
+                re, im = split_iq(iq)
                 base = self._residual_offset
-                n = len(buf)
-                # position to keep from for the next block: by default just a
-                # preamble-sized tail; an incomplete frame pulls it back to its start
-                keep_from = max(n - self.prefix_len, 0)
+                n = self._residual.shape[1] + re.shape[0]
                 if n < self.prefix_len + 4 * self.cfg.num_subcarriers:
-                    self._residual = buf
+                    self._residual = np.concatenate([self._residual, torch.stack((re, im)).cpu().numpy()],
+                                                    axis=1)
                     return []
 
                 # Scan the whole buffer for up to K frame candidates.  K is bounded
@@ -567,7 +613,7 @@ class StreamReceiver:
                 bucket = _bucket_len(n, 4 * self.cfg.num_subcarriers)
                 keff = min(self.max_frames_per_block, max(4, -(-bucket // self.prefix_len)))
                 slot = _scan_cache.slot(self.device, self.layout, bucket)
-                slot.stage(buf)
+                slot.stage(self._residual, re, im)
             with profiling.span("rx.upload"):
                 planes = slot.upload(n)  # the block's one upload
             with profiling.span("rx.scan"):
@@ -575,56 +621,20 @@ class StreamReceiver:
             with profiling.span("rx.scan_read"):
                 bests, peaks, cfos, _headers, phys, hdr_ok = _unpack_scan(packed.cpu().numpy())
             with profiling.span("rx.resolve"):
-                accepted, consumed_end, keep_from = self._resolve_candidates(
-                    bests, peaks, hdr_ok, phys, n, threshold, keep_from
+                accepted, consumed_end, keep_from, self.pending_frame = _resolve_candidates(
+                    self.layout, bests, peaks, hdr_ok, phys, n, threshold
                 )
             frames = self._decode_groups(planes[0], planes[1], accepted, cfos, base)
 
-            keep_from = max(keep_from, consumed_end)
-            # never let the residual grow beyond a bound (malformed stream guard)
-            keep_from = max(keep_from, n - self.max_residual)
-            self._residual = buf[keep_from:]
+            keep_from = max(keep_from, consumed_end, n - self.max_residual)
+            # the slot is the layout's: copy the residual out before the lock goes
+            self._residual = slot.host[:, keep_from:n].numpy().copy()
             self._residual_offset = base + keep_from
             return frames
 
     @property
     def max_residual(self) -> int:
-        return 4 * (self.prefix_len + 64 * self.cfg.symbol_len)
-
-    def _resolve_candidates(self, bests, peaks, hdr_ok, phys, n, threshold, keep_from):
-        """Host side of the adaptive receive: order candidates by position,
-        resolve per-frame configs from the decoded PHY headers, group by
-        config, and track the incomplete-frame carry point."""
-        accepted: dict[tuple, list[tuple[int, int]]] = {}  # key -> [(off, cand)]
-        consumed_end = 0
-        incomplete = False
-        attempted = 0
-        for i in np.argsort(bests, kind="stable"):
-            off, pk = int(bests[i]), float(peaks[i])
-            if pk < threshold or off < consumed_end:
-                continue
-            attempted += 1
-            if off + self.prefix_len > n:
-                # header region incomplete; wait for more samples
-                keep_from = min(keep_from, off)
-                incomplete = True
-                break
-            if not hdr_ok[i]:
-                continue  # false peak (or corrupted header): skip
-            parsed = unpack_phy_header(phys[i])
-            if parsed is None:
-                continue
-            flen = self._sync_for(*parsed).gen.frame_len
-            if off + flen > n:
-                keep_from = min(keep_from, off)
-                incomplete = True
-                break  # frame incomplete; resume next block
-            accepted.setdefault(parsed, []).append((off, int(i)))
-            consumed_end = off + flen
-        self.pending_frame = incomplete
-        profiling.count("rx.candidates_attempted", attempted)
-        profiling.count("rx.candidates_accepted", sum(map(len, accepted.values())))
-        return accepted, consumed_end, keep_from
+        return _max_residual(self.layout)
 
     def _decode_groups(self, rr_d, ri_d, accepted, cfos, base):
         """One batched demod+decode per payload config: every config is
@@ -633,23 +643,15 @@ class StreamReceiver:
         pending = []
         with profiling.span("rx.decode"):
             for parsed, items in accepted.items():
-                sync = self._sync_for(*parsed)
+                gen = _payload_gen(self.cfg, parsed)
                 offs = torch.tensor([off for off, _ in items], dtype=torch.int64).to(dev)
                 cf = torch.from_numpy(np.asarray([cfos[i] for _, i in items], np.float32)).to(dev)
-                pending.append((sync, items, *_rx_at_graph_packed(sync.gen, rr_d, ri_d, offs, cf)))
+                pending.append((gen, items, *_rx_at_graph_packed(gen, rr_d, ri_d, offs, cf)))
         with profiling.span("rx.decode_read"):
             frames = []
-            for sync, items, bpk, fpk in pending:
-                out = _unpack_rx(bpk.cpu().numpy(), fpk.cpu().numpy(), sync.payload_len)
-                for j, (off, _i) in enumerate(items):
-                    frames.append(
-                        {
-                            "offset": base + off,
-                            "stats": sync._stats_from(out, j),
-                            "header": out["headers"][j],
-                            "payload": out["payloads"][j],
-                        }
-                    )
+            for gen, items, bpk, fpk in pending:
+                out = _unpack_rx(bpk.cpu().numpy(), fpk.cpu().numpy(), gen.payload_len)
+                frames += [_frame(gen, out, j, base + off) for j, (off, _i) in enumerate(items)]
             frames.sort(key=lambda f: f["offset"])
         return frames
 
@@ -700,7 +702,7 @@ class StreamReceiver:
         n = r_cap + int(blk_r.shape[0])
         keff = min(self.max_frames_per_block, max(4, -(-n // self.prefix_len)))
         spec = tuple(sorted(self._spec_lru[-2:]))
-        spec_gens = tuple(self._sync_for(*key).gen for key in spec)
+        spec_gens = tuple(_payload_gen(self.cfg, key) for key in spec)
         (
             self._res_r_d,
             self._res_i_d,
@@ -803,7 +805,7 @@ class StreamReceiver:
                 .reshape(len(rows), 2)
             )
             f32_s = np.column_stack([er, cfos[rows]])
-            spec_outs.append((self._sync_for(*key), _unpack_rx(dec[rows, :width], f32_s, key[0])))
+            spec_outs.append((_payload_gen(self.cfg, key), _unpack_rx(dec[rows, :width], f32_s, key[0])))
             spec_pos.append({int(i): j for j, i in enumerate(rows)})
         frames = []
         fallback: dict[tuple, list[tuple[int, int]]] = {}
@@ -812,16 +814,8 @@ class StreamReceiver:
             off = int(bests[i])
             s = int(match_idx[i])
             if s >= 0:
-                sync, out = spec_outs[s]
-                j = spec_pos[s][int(i)]
-                frames.append(
-                    {
-                        "offset": base2 + off,
-                        "stats": sync._stats_from(out, j),
-                        "header": out["headers"][j],
-                        "payload": out["payloads"][j],
-                    }
-                )
+                gen, out = spec_outs[s]
+                frames.append(_frame(gen, out, spec_pos[s][int(i)], base2 + off))
                 self._touch_spec(spec[s])
             else:
                 # the scan's exact PHY header (rec cols 4..10); accept implies

@@ -27,6 +27,7 @@ from cognitive_radio_network_tpu_torch.phy import stream
 from cognitive_radio_network_tpu_torch.phy.framegen import OFDMFrameConfig, OFDMFrameGen, gen_for
 from cognitive_radio_network_tpu_torch.phy.framesync import _bucket_len
 from cognitive_radio_network_tpu_torch.phy.stream import StreamReceiver, _scan_block_graph_packed
+from cognitive_radio_network_tpu_torch.signal.iq import split_iq
 from cognitive_radio_network_tpu_torch.utils import profiling
 
 pytestmark = [
@@ -93,7 +94,7 @@ def test_replayed_record_equals_the_eager_one(fresh_slots, link, lengths):
     x = _tape(link, lengths[0] + 4 * 997, seed=sum(lengths))
     for turn, n in enumerate([lengths[0], lengths[1], lengths[0], lengths[1]]):
         buf = x[turn * 997 : turn * 997 + n]
-        slot.stage(buf)
+        slot.stage(np.zeros((2, 0), np.float32), *split_iq(buf))  # no residual
         slot.upload(n)
         before = extract_windows.launches
         got = slot.scan(layout, n, k).cpu()

@@ -288,6 +288,36 @@ def test_receive_block_input_forms(rng, form):
     np.testing.assert_array_equal(np.stack([f["payload"] for f in got]), payloads)
 
 
+def _reference_fixed_walk(offs, peaks, ok, thr, frame_len):
+    """The fixed-config acceptance, as a plain loop over (offset, index) order."""
+    kept, consumed = [], 0
+    for i in sorted(range(len(offs)), key=lambda i: (offs[i], i)):
+        if peaks[i] >= thr and ok[i] and offs[i] >= consumed:
+            kept.append(i)
+            consumed = offs[i] + frame_len
+    return kept
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_fixed_walk_is_the_plain_loop(seed):
+    """Random candidate tables (overlaps, weak peaks, false ``ok``, equal
+    offsets, unsorted): the walk ``receive_block`` and the sharded fixed-config
+    receiver share keeps the candidates the plain loop keeps, in its order."""
+    rng = np.random.default_rng(seed)
+    for _ in range(50):
+        k = int(rng.integers(1, 40))
+        offs = rng.integers(0, 6000, k)
+        if k > 2:
+            offs[2] = offs[0]  # the top-K pads with repeated candidates
+        peaks = rng.uniform(0, 1, k).astype(np.float32)
+        ok = rng.uniform(0, 1, k) < 0.8
+        frame_len = int(rng.integers(100, 1500))
+        got = fs._accept_fixed(offs, peaks, ok, 0.2, frame_len)
+        assert got == _reference_fixed_walk(offs, peaks, ok, np.float32(0.2), frame_len)
+        starts = offs[got]
+        assert (np.diff(starts) >= frame_len).all()  # kept frames never overlap
+
+
 def test_rx_block_fn_slice(rng):
     """The slice as a whole: a default-config burst of 8 frames with 80-sample
     gaps (the shape of tests/tpu_gates.py::gate_ofdm_decode, cut to F=8 and

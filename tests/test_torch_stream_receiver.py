@@ -156,7 +156,7 @@ def test_phy_geometry_flags_out_of_range_ids():
 
 
 def _reference_walk(offs, peaks, ok, flen, keep0, thr, n, prefix):
-    """The host loop of ``StreamReceiver._resolve_candidates``, on columns."""
+    """The host loop of ``stream._resolve_candidates``, on columns."""
     consumed, keep_from, incomplete, accept = 0, keep0, False, [False] * len(offs)
     for i in range(len(offs)):
         if peaks[i] < thr or offs[i] < consumed:
@@ -259,7 +259,7 @@ def test_stream_step_record_matches_jax(rng, specs):
     assert r_cap == jfs._bucket_len(jrx.max_residual)
     res = _noise(rng, r_cap, 0.003)
     res[: r_cap - 700] = 0  # a residual of 700 live samples, right-aligned
-    gens = tuple(rx._sync_for(*k).gen for k in sorted(keys))
+    gens = tuple(stream._payload_gen(rx.cfg, k) for k in sorted(keys))
     out = stream._stream_step_graph(
         rx.layout, gens, rx.max_residual, *_planes(res, "torch"), torch.tensor(700),
         *_planes(blk, "torch"), 0.2, k=8)
@@ -387,10 +387,10 @@ def test_skip_and_carry_match_jax(rng):
         r.carry(data[2000:4000])
         frames += r.process(data[4000:6000])
         r.skip(2000)  # 6000..8000 squelched
-        assert len(r._residual) == 0 and not r.pending_frame
+        assert r._residual.shape[-1] == 0 and not r.pending_frame
         frames += r.process(data[8000:])
     assert rx._residual_offset == jrx._residual_offset
-    assert len(rx._residual) == len(jrx._residual)
+    assert rx._residual.shape[1] == len(jrx._residual)
     _assert_ground_truth(got, [(3900, p[0]), (9000, p[1])])
     _assert_frames_equal(got, want)
 
@@ -410,7 +410,7 @@ def test_tiny_block_early_out(rng):
         got_d += dev.process_device(*_planes(seg, "torch"))
         if b <= 250:
             assert got_h == [] and got_d == []
-            assert len(host._residual) == b and not host.pending_frame
+            assert host._residual.shape[1] == b and not host.pending_frame
             assert int(dev._res_len_d) == b and not dev.pending_frame
     assert len(whole) >= 3
     _assert_frames_equal(got_h, whole)
@@ -598,7 +598,7 @@ def test_stream_step_into_caller_windows_returns_none_of_them(rng):
     another block, leaves every tensor the first returned unchanged."""
     blk1, blk2 = _one_block(rng), _one_block(rng)
     rx = _rx(8)
-    gens = tuple(rx._sync_for(*key).gen for key in sorted([_KEY_A, _KEY_B]))
+    gens = tuple(stream._payload_gen(rx.cfg, key) for key in sorted([_KEY_A, _KEY_B]))
     res = np.zeros(framesync._bucket_len(rx.max_residual), np.complex64)
 
     def step(blk, ws):
@@ -665,7 +665,7 @@ def test_device_step_gathers_twice_and_matches_jax(rng, monkeypatch):
         got += rx.feed_device(*_planes(data[s : s + 1536], "torch"), max_lag=2)
         steps += 1
     got += rx.flush()
-    wlens = (stream._prefix_len(rx.layout), *(rx._sync_for(*k).gen.frame_len
+    wlens = (stream._prefix_len(rx.layout), *(stream._payload_gen(rx.cfg, k).frame_len
                                               for k in sorted([_KEY_A, _KEY_B])))
     assert calls == [("one", 160), ("sets", wlens)] * steps
     _assert_ground_truth(got, placed)
