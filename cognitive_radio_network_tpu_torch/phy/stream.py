@@ -15,7 +15,9 @@ Two ways to drive it:
   card, replayed from a CUDA graph captured once per shape:
   :class:`_ScanSlot`), its packed record comes back in one copy, candidates
   are resolved on the host and each payload configuration present is decoded
-  in one batched pass;
+  in one batched pass (on a card replayed from a CUDA graph the slot keeps
+  per payload configuration and group size), whose record comes back in one
+  copy;
 * :meth:`StreamReceiver.feed_device` / :meth:`StreamReceiver.flush` (and
   :meth:`StreamReceiver.process_device`, the synchronous form), the device API:
   the block's planes and all stream state live on the device and one call of
@@ -44,6 +46,7 @@ import torch
 
 from cognitive_radio_network_tpu_torch.ops.extract import extract_window_sets, extract_windows
 from cognitive_radio_network_tpu_torch.ops.resolve import resolve_candidates
+from cognitive_radio_network_tpu_torch.ops.viterbi import viterbi_decode_k7
 from cognitive_radio_network_tpu_torch.phy import crc as crc_mod
 from cognitive_radio_network_tpu_torch.phy import fec as fec_mod
 from cognitive_radio_network_tpu_torch.phy import modem
@@ -171,15 +174,18 @@ def _unpack_scan(packed: np.ndarray):
     return bests, peaks, cfos, headers, phy, hdr_ok
 
 
-def _rx_at_graph_packed(gen: OFDMFrameGen, rr, ri, offsets, cfos):
-    """:func:`_rx_at_graph` with its outputs in two arrays: uint8 (G, 16 + P)
-    [header[8], phy[6], payload[P], hdr_ok, pay_ok] and float32 (G, 3)
-    [evm_db, rssi_db, cfo]."""
-    return _pack_rx(_rx_at_graph(gen, rr, ri, offsets, cfos))
+def _rx_at_graph_packed(gen: OFDMFrameGen, rr, ri, offsets, cfos) -> torch.Tensor:
+    """:func:`_rx_at_graph` with its outputs in one uint8 (G, 28 + P) record:
+    [header[8], phy[6], payload[P], hdr_ok, pay_ok, evm_db, rssi_db, cfo],
+    the three float32 columns as their bytes (:func:`_unpack_rx_record`)."""
+    bytes_cols, f32_cols = _pack_rx(_rx_at_graph(gen, rr, ri, offsets, cfos))
+    return torch.cat([bytes_cols, f32_cols.view(torch.uint8)], dim=1)
 
 
 def _pack_rx(out: dict):
-    """A fused receive's outputs in the two arrays of :func:`_rx_at_graph_packed`."""
+    """A fused receive's outputs in two arrays: uint8 (G, 16 + P) [header[8],
+    phy[6], payload[P], hdr_ok, pay_ok] and float32 (G, 3) [evm_db, rssi_db,
+    cfo]."""
     bytes_cols = [
         out["headers"],
         out["phy"],
@@ -205,6 +211,22 @@ def _unpack_rx(bytes_packed: np.ndarray, f32_packed: np.ndarray, payload_len: in
         "rssi_db": f[:, 1],
         "cfo": f[:, 2],
     }
+
+
+def _unpack_rx_record(rec: np.ndarray, payload_len: int) -> dict:
+    """A fetched record of :func:`_rx_at_graph_packed` as :func:`_unpack_rx`'s dict."""
+    w = 16 + payload_len
+    return _unpack_rx(rec[:, :w], np.ascontiguousarray(rec[:, w:]).view(np.float32), payload_len)
+
+
+def _to_host(rec: torch.Tensor) -> torch.Tensor:
+    """Start ``rec``'s copy to pinned host memory without waiting for it; a
+    record on the CPU is the host's already."""
+    if rec.device.type != "cuda":
+        return rec
+    host = torch.empty(rec.shape, dtype=rec.dtype, pin_memory=True)
+    host.copy_(rec, non_blocking=True)
+    return host
 
 
 # ----------------------------------------------------------------------
@@ -406,21 +428,23 @@ def _stream_step_graph(
 
 
 # ----------------------------------------------------------------------
-# the host API's block scan: one staging buffer per shape, and on a card
-# one CUDA graph per shape
+# the host API's block scan and group decode: one staging buffer per shape,
+# and on a card one CUDA graph per shape
 # ----------------------------------------------------------------------
+
+_DECODE_GRAPHS = 16  # decode graphs a slot keeps; a group of another (config, G) decodes eagerly
 
 
 class _ScanCache:
     """The process's block-scan slots, one per (device, layout, bucket) and
     shared by every receiver of the layout, and per card the one memory pool
-    and capture stream of their graphs.  The graphs share the pool (replays
-    are serialised by ``lock``, and each output is read before it is
-    released), and one stream lets each capture reuse its predecessors' freed
-    blocks.
+    and capture stream of their graphs.  The graphs share the pool: replays
+    are serialised by ``lock``, and each output is copied out before another
+    graph replays, so a later graph may reuse what an earlier one freed.  One
+    stream lets each capture reuse its predecessors' freed blocks.
     :meth:`StreamReceiver.process` holds ``lock`` from the block's staging to
     its decode's last read and its residual's copy out of the slot: the slot's
-    buffers and its graph's output are in use until then."""
+    buffers and its graphs' outputs are in use until then."""
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -449,8 +473,30 @@ class _ScanCache:
 _scan_cache = _ScanCache()
 
 
+class _GroupGraph:
+    """A decoded group's CUDA graph and its static inputs: the group's G
+    offsets (int64) and CFOs (float32) in one device buffer, filled from a
+    pinned host buffer by one asynchronous copy.  Each graph has its own
+    inputs, so two groups of one call never share a host buffer whose copy
+    may not have run yet."""
+
+    def __init__(self, g: int, device: torch.device):
+        self.host = torch.empty(3 * g, dtype=torch.int32, pin_memory=True)
+        self.inputs = torch.empty(3 * g, dtype=torch.int32, device=device)
+        self.offsets = self.inputs[: 2 * g].view(torch.int64)
+        self.cfos = self.inputs[2 * g :].view(torch.float32)
+        self.graph = self.out = self.launches = None  # set by the capture
+
+    def load(self, offsets: np.ndarray, cfos: np.ndarray) -> None:
+        h = self.host.numpy()
+        h[: 2 * len(offsets)].view(np.int64)[:] = offsets
+        h[2 * len(offsets) :].view(np.float32)[:] = cfos
+        self.inputs.copy_(self.host, non_blocking=True)
+
+
 class _ScanSlot:
-    """The block scan's buffers for one (device, layout, bucket).
+    """The block scan's buffers for one (device, layout, bucket), and on a
+    card the graphs of the scan and of the decode that read them.
 
     A block is staged into ``host`` (2, bucket) float32 planes, zero past its
     samples.  On the CPU ``host`` is the scan's input; on a card it is pinned
@@ -459,12 +505,16 @@ class _ScanSlot:
     once per ``k`` (which fills the device tables' caches and warms cuBLAS),
     then is captured as a CUDA graph over these static inputs and replayed on
     every later call: the same kernels on the same inputs, so the same
-    record.  A replay adds the extract kernel's launches in the graph to
-    ``extract_windows.launches``, as the eager scan's wrapper calls do."""
+    record.  The groups of accepted frames decode from the same planes in the
+    same way, a graph per (payload config, group size) (:meth:`decode`).  A
+    replay adds the extract and Viterbi kernels' launches in its graph to
+    ``extract_windows.launches`` and ``viterbi_decode_k7.launches``, as the
+    eager wrapper calls do."""
 
     def __init__(self, device: torch.device, bucket: int, pool: tuple | None):
         self.pool = pool  # the card's (memory pool, capture stream); None on the CPU
-        self.graphs: dict[int, tuple] = {}  # k -> (graph, its packed record, its extract launches)
+        self.graphs: dict[int, tuple] = {}  # k -> (graph, its packed record, its launches)
+        self.decodes: dict[tuple, _GroupGraph] = {}  # (payload key, G) -> its graph
         if device.type == "cuda":
             self.planes = torch.empty((2, bucket), dtype=torch.float32, device=device)
             self.n_valid = torch.zeros((), dtype=torch.int64, device=self.planes.device)
@@ -489,6 +539,30 @@ class _ScanSlot:
             self.n_valid.fill_(n)
         return self.planes
 
+    def _capture(self, fn) -> tuple:
+        """``fn()`` captured as a CUDA graph into the card's pool: (graph, its
+        output, the extract and Viterbi launches it holds).  The capture runs
+        nothing on the card, so what it added to the launch counters is taken
+        off again, and its counts go to no span."""
+        before = extract_windows.launches, viterbi_decode_k7.launches
+        graph = torch.cuda.CUDAGraph()
+        handle, side = self.pool
+        # the capture binds this thread alone: another may allocate, launch
+        # and synchronize on the card meanwhile (a node's transmit chain does)
+        with profiling.uncounted(), torch.cuda.graph(graph, pool=handle, stream=side,
+                                                     capture_error_mode="thread_local"):
+            out = fn()
+        launches = extract_windows.launches - before[0], viterbi_decode_k7.launches - before[1]
+        extract_windows.launches -= launches[0]
+        viterbi_decode_k7.launches -= launches[1]
+        return graph, out, launches
+
+    @staticmethod
+    def _replay(graph, launches: tuple) -> None:
+        graph.replay()
+        extract_windows.launches += launches[0]
+        viterbi_decode_k7.launches += launches[1]
+
     def scan(self, layout: OFDMFrameGen, n: int, k: int) -> torch.Tensor:
         """The packed scan record (:func:`_scan_block_graph_packed`) of the
         uploaded block of ``n`` samples."""
@@ -498,23 +572,43 @@ class _ScanSlot:
         entry = self.graphs.get(k)
         if entry is not None:
             graph, packed, launches = entry
-            graph.replay()
-            extract_windows.launches += launches
+            self._replay(graph, launches)
             profiling.count("rx.scan_graph_replays")
             return packed
         packed = _scan_block_graph_packed(layout, rr, ri, self.n_valid, k=k)
-        before = extract_windows.launches
-        graph = torch.cuda.CUDAGraph()
-        handle, side = self.pool
-        # the capture binds this thread alone: another may allocate, launch
-        # and synchronize on the card meanwhile (a node's transmit chain does)
-        with torch.cuda.graph(graph, pool=handle, stream=side, capture_error_mode="thread_local"):
-            out = _scan_block_graph_packed(layout, rr, ri, self.n_valid, k=k)
-        launches = extract_windows.launches - before
-        extract_windows.launches -= launches  # the capture ran nothing on the card
-        self.graphs[k] = (graph, out, launches)
+        self.graphs[k] = self._capture(lambda: _scan_block_graph_packed(layout, rr, ri, self.n_valid, k=k))
         profiling.count("rx.scan_graph_captures")
         return packed
+
+    def decode(self, gen: OFDMFrameGen, key: tuple, offsets: np.ndarray, cfos: np.ndarray):
+        """On a card, the packed receive record (:func:`_rx_at_graph_packed`)
+        of the frames of payload config ``key`` (made by ``gen``) at
+        ``offsets`` in the uploaded block: a replay of the group's graph, or
+        on a new (key, G) the eager decode, then the graph's capture.  None
+        once the slot holds ``_DECODE_GRAPHS`` graphs and the (key, G) is not
+        among them: the caller decodes the group eagerly.  The record is the
+        graph's own output, rewritten by the next replay of any graph in the
+        pool: copy it out first.  Each replay counts the Viterbi kernel's
+        frames as its launches would (each decodes the group's G frames)."""
+        g = len(offsets)
+        entry = self.decodes.get((key, g))
+        if entry is None:
+            if len(self.decodes) >= _DECODE_GRAPHS:
+                return None
+            entry = self.decodes[(key, g)] = _GroupGraph(g, self.planes.device)
+        entry.load(offsets, cfos)
+        if entry.graph is not None:
+            self._replay(entry.graph, entry.launches)
+            if entry.launches[1]:
+                profiling.count("fec.viterbi_kernel_frames", entry.launches[1] * g)
+            profiling.count("rx.decode_graph_replays")
+            return entry.out
+        rr, ri = self.planes[0], self.planes[1]
+        rec = _rx_at_graph_packed(gen, rr, ri, entry.offsets, entry.cfos)
+        entry.graph, entry.out, entry.launches = self._capture(
+            lambda: _rx_at_graph_packed(gen, rr, ri, entry.offsets, entry.cfos))
+        profiling.count("rx.decode_graph_captures")
+        return rec
 
 
 # ----------------------------------------------------------------------
@@ -624,7 +718,7 @@ class StreamReceiver:
                 accepted, consumed_end, keep_from, self.pending_frame = _resolve_candidates(
                     self.layout, bests, peaks, hdr_ok, phys, n, threshold
                 )
-            frames = self._decode_groups(planes[0], planes[1], accepted, cfos, base)
+            frames = self._decode_groups(planes[0], planes[1], accepted, cfos, base, slot)
 
             keep_from = max(keep_from, consumed_end, n - self.max_residual)
             # the slot is the layout's: copy the residual out before the lock goes
@@ -636,21 +730,34 @@ class StreamReceiver:
     def max_residual(self) -> int:
         return _max_residual(self.layout)
 
-    def _decode_groups(self, rr_d, ri_d, accepted, cfos, base):
+    def _decode_groups(self, rr_d, ri_d, accepted, cfos, base, slot=None):
         """One batched demod+decode per payload config: every config is
-        dispatched first, then the results are fetched."""
+        dispatched and its record's copy to the host started behind it, then
+        the host waits once and reads them all.  On a card a group decoded
+        from ``slot``'s planes replays the slot's graph for its (config, G)
+        (:meth:`_ScanSlot.decode`); any other group there decodes eagerly and
+        counts ``rx.decode_graph_eager``."""
         dev = rr_d.device
         pending = []
         with profiling.span("rx.decode"):
             for parsed, items in accepted.items():
                 gen = _payload_gen(self.cfg, parsed)
-                offs = torch.tensor([off for off, _ in items], dtype=torch.int64).to(dev)
-                cf = torch.from_numpy(np.asarray([cfos[i] for _, i in items], np.float32)).to(dev)
-                pending.append((gen, items, *_rx_at_graph_packed(gen, rr_d, ri_d, offs, cf)))
+                offs = np.asarray([off for off, _ in items], np.int64)
+                cf = np.asarray([cfos[i] for _, i in items], np.float32)
+                rec = slot.decode(gen, parsed, offs, cf) if slot is not None and dev.type == "cuda" else None
+                if rec is None:
+                    if dev.type == "cuda":
+                        profiling.count("rx.decode_graph_eager")
+                    rec = _rx_at_graph_packed(gen, rr_d, ri_d, torch.from_numpy(offs).to(dev),
+                                              torch.from_numpy(cf).to(dev))
+                pending.append((gen, items, _to_host(rec)))
         with profiling.span("rx.decode_read"):
+            if dev.type == "cuda" and pending:
+                torch.cuda.current_stream(dev).synchronize()
             frames = []
-            for gen, items, bpk, fpk in pending:
-                out = _unpack_rx(bpk.cpu().numpy(), fpk.cpu().numpy(), gen.payload_len)
+            for gen, items, rec in pending:
+                # a copy: the pinned buffer goes back to the allocator
+                out = _unpack_rx_record(rec.numpy().copy(), gen.payload_len)
                 frames += [_frame(gen, out, j, base + off) for j, (off, _i) in enumerate(items)]
             frames.sort(key=lambda f: f["offset"])
         return frames

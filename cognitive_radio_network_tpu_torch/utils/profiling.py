@@ -18,7 +18,8 @@ record and no ``record_function``.  A span's record holds its name, its start an
 ``time.perf_counter``, the index of its parent span on the same thread, a
 call id (the index of its thread's outermost open span: every span of one
 top-level call shares it) and the counters :func:`count` added while it was
-the innermost open span.  Records go to a bounded ring that drops the oldest
+the innermost open span (none inside :func:`uncounted`, which a CUDA graph's
+capture runs in).  Records go to a bounded ring that drops the oldest
 first and counts what it dropped (:func:`recorded`, :func:`dropped`,
 :func:`calls`).  While a profiler records, each span is also a
 ``record_function`` range of the same name, so it lies on the trace's clock
@@ -37,8 +38,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["trace", "device_time", "drain", "span", "count", "recording", "recorded", "dropped",
-           "calls"]
+__all__ = ["trace", "device_time", "drain", "span", "count", "uncounted", "recording", "recorded",
+           "dropped", "calls"]
 
 RING = 1 << 17  # records the ring keeps before it drops the oldest
 
@@ -150,6 +151,20 @@ def count(name: str, n: int = 1) -> None:
     rec["t1"] = rec["t0"]
     rec["counts"][name] = n
     _keep(rec)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Keep what :func:`count` adds inside the block, on this thread, out of
+    every span: for work that runs nothing, as the capture of a CUDA graph,
+    whose replays count for themselves.  Spans opened in the block record as
+    ever."""
+    stack = _stack()
+    stack.append(dict(stack[-1], counts={}) if stack else {"index": None, "call": None, "counts": {}})
+    try:
+        yield
+    finally:
+        stack.pop()
 
 
 def recorded() -> list[dict]:

@@ -238,9 +238,9 @@ def test_packed_rx_round_trip(rng):
     gen = gen_for(OFDMFrameConfig(), 48)
     offs = torch.tensor([200, 200 + 2 * (gen.frame_len + 300) - gen.frame_len])
     cfos = torch.zeros(2)
-    bpk, fpk = stream._rx_at_graph_packed(gen, rr, ri, offs, cfos)
-    assert bpk.shape == (2, 16 + 48) and bpk.dtype == torch.uint8 and fpk.shape == (2, 3)
-    out = stream._unpack_rx(bpk.numpy(), fpk.numpy(), 48)
+    rec = stream._rx_at_graph_packed(gen, rr, ri, offs, cfos)
+    assert rec.shape == (2, 16 + 48 + 12) and rec.dtype == torch.uint8
+    out = stream._unpack_rx_record(rec.numpy(), 48)
     raw = framesync._rx_at_graph(gen, rr, ri, offs, cfos)
     for key in ("headers", "phy", "payloads", "hdr_ok", "pay_ok", "evm_db", "rssi_db", "cfo"):
         np.testing.assert_array_equal(out[key], raw[key].numpy())

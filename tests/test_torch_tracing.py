@@ -4,6 +4,7 @@ the Viterbi loop.  All on the CPU; the tracer's records are host times, so
 nothing here depends on a card."""
 
 import collections
+import contextlib
 import dataclasses
 import json
 
@@ -116,6 +117,43 @@ def test_spans_are_trace_ranges_under_the_profiler(tmp_path):
     assert profiling.span("x") is profiling.span("y")  # off once the profiler stops
 
 
+@pytest.mark.parametrize("outer", [True, False])
+def test_uncounted_keeps_counts_out_of_every_span(outer):
+    """Counts made inside ``uncounted`` reach no span, with a span open
+    around it or none; a span opened inside records as ever, and counts
+    resume after the block."""
+    with profiling.recording() as recs:
+        with profiling.span("top") if outer else contextlib.nullcontext():
+            profiling.count("n")
+            with profiling.uncounted():
+                profiling.count("n", 10)
+                with profiling.span("inner"):
+                    pass
+                profiling.count("n", 100)
+            profiling.count("n", 2)
+    inner = next(r for r in recs if r["name"] == "inner")
+    assert inner["counts"] == {} and inner["t1"] >= inner["t0"]
+    total = sum(c["counts"].get("n", 0) for c in profiling.calls(recs))
+    assert total == 3
+    if outer:
+        top = next(r for r in recs if r["name"] == "top")
+        assert top["counts"] == {"n": 3} and inner["parent"] == top["index"]
+        assert inner["call"] == top["index"]
+    else:
+        assert [r["counts"] for r in recs if r["name"] == "n"] == [{"n": 1}, {"n": 2}]
+
+
+def test_uncounted_off_is_harmless():
+    """With nothing recording the block runs and leaves the tracer as it was."""
+    before = (len(profiling.recorded()), profiling.dropped())
+    with profiling.uncounted():
+        profiling.count("n")
+    assert (len(profiling.recorded()), profiling.dropped()) == before
+    with profiling.recording() as recs:
+        profiling.count("after")
+    assert [r["counts"] for r in recs] == [{"after": 1}]
+
+
 # --- the spans placed in the program --------------------------------------------
 
 
@@ -177,6 +215,25 @@ def test_stream_receiver_spans_and_counters(fec0):
         assert steps > 0
     else:
         assert steps == 0
+
+
+@pytest.mark.parametrize("fec0", ["h128", "v27"])
+def test_cpu_process_decodes_eagerly_and_counts_no_decode_graph(fec0):
+    """On the CPU every group decodes eagerly: ``process`` delivers the frames
+    sent, as the plain run does, and counts none of the card's decode-graph
+    counters (``rx.decode_graph_captures``, ``_replays``, ``_eager``)."""
+    x, payloads = _tape(fec0)
+    plain = _receive(x)
+    with profiling.recording() as recs:
+        traced = _receive(x)
+    assert _frame_fields(traced) == _frame_fields(plain)
+    assert [bytes(f["payload"]) for f in traced] == [bytes(p) for p in payloads]
+    assert all(f["stats"].payload_valid for f in traced)
+    counts = collections.Counter()
+    for c in profiling.calls(recs):
+        counts.update(c["counts"])
+    assert counts["rx.candidates_accepted"] == len(payloads)
+    assert not [k for k in counts if k.startswith("rx.decode_graph")]
 
 
 @pytest.mark.parametrize("with_trace", [False, True])
