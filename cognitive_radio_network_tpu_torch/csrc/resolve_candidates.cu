@@ -13,21 +13,23 @@
 // make every stream step wait for the one before.  One small kernel keeps the
 // step's state on the card.
 //
-// Contract (the wrapper in ops/resolve.py checks it); candidates sorted by offset:
-//   offs    (K,) int64    frame start in the buffer
-//   peaks   (K,) float32  detection metric at the start
-//   ok      (K,) uint8    header CRC passed and the PHY header parses (0 or 1)
-//   flen    (K,) int64    frame length from the candidate's own PHY header
-//   keep0   (1,) int64    where the residual starts when nothing is incomplete
-//   accept  (K,) uint8    out: 1 where the candidate is a frame to decode
-//   meta    (3,) int64    out: end of the last accepted frame, the residual's
-//                         keep point, and 1 when the walk stopped at an
-//                         incomplete frame
+// Contract (the wrapper in ops/resolve.py checks it): B streams' walks, each
+// over its own row of K candidates sorted by offset, all buffers of length n:
+//   offs    (B, K) int64    frame start in the stream's buffer
+//   peaks   (B, K) float32  detection metric at the start
+//   ok      (B, K) uint8    header CRC passed and the PHY header parses (0 or 1)
+//   flen    (B, K) int64    frame length from the candidate's own PHY header
+//   keep0   (B,) int64      where the residual starts when nothing is incomplete
+//   accept  (B, K) uint8    out: 1 where the candidate is a frame to decode
+//   meta    (B, 3) int64    out: end of the last accepted frame, the residual's
+//                           keep point, and 1 when the walk stopped at an
+//                           incomplete frame
 //
 // What bounds it: nothing on the card's scale.  It reads 21 bytes per
 // candidate; the walk is a chain of K dependent steps through the end of the
 // last accepted frame, so its time is that chain's latency in one thread plus
-// a launch.  One warp: all lanes stage a chunk of candidates in shared memory
+// a launch.  One block of one warp per stream, so B walks take one launch
+// and run side by side: all lanes stage a chunk of candidates in shared memory
 // with coalesced loads and settle, in parallel, everything that does not
 // depend on the chain (threshold, header, the two overrun tests) into one flag
 // word per candidate; lane 0 walks the chunk with predicated selects and no
@@ -53,6 +55,15 @@ resolve_candidates_kernel(const int64_t* __restrict__ offs, const float* __restr
                           const int64_t* __restrict__ keep0, uint8_t* __restrict__ accept,
                           int64_t* __restrict__ meta, int k, float thr, int64_t n,
                           int64_t prefix) {
+  // this block's stream: its row of every column
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * k;
+  offs += row;
+  peaks += row;
+  ok += row;
+  flen += row;
+  accept += row;
+  keep0 += blockIdx.x;
+  meta += 3 * static_cast<int64_t>(blockIdx.x);
   __shared__ int64_t s_off[kChunk];
   __shared__ int64_t s_end[kChunk];
   __shared__ int s_flags[kChunk];
@@ -103,14 +114,16 @@ resolve_candidates_kernel(const int64_t* __restrict__ offs, const float* __restr
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).  With
-// k = 0 the kernel writes meta alone.
+// Launches `rows` blocks on `stream` and returns cudaGetLastError() (0 on
+// success).  With k = 0 the kernel writes meta alone; with rows = 0 it
+// launches nothing.
 extern "C" int crn_resolve_candidates(const void* offs, const void* peaks, const void* ok,
                                       const void* flen, const void* keep0, void* accept,
-                                      void* meta, int k, float thr, long long n, long long prefix,
-                                      void* stream) {
-  if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
-  resolve_candidates_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+                                      void* meta, int rows, int k, float thr, long long n,
+                                      long long prefix, void* stream) {
+  if (k < 0 || rows < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  resolve_candidates_kernel<<<rows, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(offs), static_cast<const float*>(peaks),
       static_cast<const uint8_t*>(ok), static_cast<const int64_t*>(flen),
       static_cast<const int64_t*>(keep0), static_cast<uint8_t*>(accept),

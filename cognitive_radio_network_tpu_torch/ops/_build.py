@@ -64,7 +64,7 @@ _SIGNATURES = {
     # xr, xi, tw, band, feats, cycles, averaging, stream
     "crn_fused_sense": (_P, _P, _P, _P, _P, _I, _I, _P),
     # offs, peaks, ok, flen, keep0, accept, meta, k, thr, n, prefix, stream
-    "crn_resolve_candidates": (_P, _P, _P, _P, _P, _P, _P, _I, _F, _L, _L, _P),
+    "crn_resolve_candidates": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _L, _L, _P),
     # coded, row_stride, n_bits, frames, out, scratch, stream
     "crn_viterbi_k7": (_P, _L, _I, _I, _P, _P, _P),
 }

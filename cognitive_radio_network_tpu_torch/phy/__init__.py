@@ -6,7 +6,8 @@ capability of liquid-dsp's ``ofdmflexframegen`` / ``ofdmflexframesync``
 (the external C library the reference's radio runtime is built on): CRC,
 FEC, constellation mod/demod, pilot/null subcarrier allocation, frame
 generation, a batched block-oriented frame synchronizer and a streaming
-receiver that adapts to each frame's PHY header, producing
+receiver that adapts to each frame's PHY header (and a bank of such
+streams received in one device step), producing
 ``FrameSyncStats`` records (the contract of the vendored
 framesyncstats.c:39-55).
 """
@@ -18,6 +19,7 @@ from cognitive_radio_network_tpu_torch.phy.framesync import (
     OFDMFrameSync,
     StreamReceiver,
 )
+from cognitive_radio_network_tpu_torch.phy.stream import StreamBank
 
 __all__ = [
     "bits",
@@ -30,4 +32,5 @@ __all__ = [
     "OFDMFrameSync",
     "FrameSyncStats",
     "StreamReceiver",
+    "StreamBank",
 ]

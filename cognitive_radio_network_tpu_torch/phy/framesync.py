@@ -283,46 +283,51 @@ def _bucket_len(n: int, floor: int = 1) -> int:
 
 
 def _box3h(x: torch.Tensor, h: int) -> torch.Tensor:
-    """Sliding sum of width 3h: ``y[t] = sum(x[t : t + 3h])``.
+    """Sliding sum of width 3h along the last axis: ``y[..., t] = sum(x[...,
+    t : t + 3h])``, each row (stream) on its own.
 
     For power-of-two h this is the reference's doubling ladder (log2 h
     shifted adds) plus a 3-term combine, in the same order, so the S&C
     metric agrees to the last bit of each add.  Tree-structured adds also
     avoid the cumsum-difference cancellation."""
     if h & (h - 1):  # non-power-of-two: cumsum difference fallback
-        c = torch.cumsum(torch.cat([torch.zeros(1, dtype=x.dtype, device=x.device), x]), 0)
-        return c[3 * h :] - c[: -3 * h]
+        zero = torch.zeros((*x.shape[:-1], 1), dtype=x.dtype, device=x.device)
+        c = torch.cumsum(torch.cat([zero, x], dim=-1), -1)
+        return c[..., 3 * h :] - c[..., : -3 * h]
     s = x
     k = 1
     while k < h:
-        s = s[:-k] + s[k:]
+        s = s[..., :-k] + s[..., k:]
         k *= 2
-    n = s.shape[0]
-    return s[: n - 2 * h] + s[h : n - h] + s[2 * h :]
+    n = s.shape[-1]
+    return s[..., : n - 2 * h] + s[..., h : n - h] + s[..., 2 * h :]
 
 
 def _sc_metric(r: torch.Tensor, n_valid: torch.Tensor, m: int):
-    """Schmidl&Cox plateau metric over a whole block.
+    """Schmidl&Cox plateau metric over a whole block, or over each row of a
+    (B, N) batch of streams' blocks.
 
-    Returns (metric (N-ish,), p (autocorrelation sums), half).  Normalized
-    by the energy of BOTH halves of the correlation window — one-sided
-    normalization explodes when the early half is pure noise."""
+    Returns (metric (..., N-ish), p (autocorrelation sums), half).
+    Normalized by the energy of BOTH halves of the correlation window —
+    one-sided normalization explodes when the early half is pure noise.
+    ``n_valid``: 0-d, or (B,) per stream."""
     half = m // 2
-    lag = r[half:] * torch.conj(r[:-half])
+    lag = r[..., half:] * torch.conj(r[..., :-half])
     win = 2 * m - half  # == 3 * half
     p = _box3h(lag, half)
     pw = r.abs() ** 2
     s3 = _box3h(pw, half)  # s3[t] = sum(pw[t : t + win])
-    ln = p.shape[0]
-    e1 = s3[:ln]
-    e2 = s3[half : half + ln]
-    # floor the energies at a fraction of the block's average window energy:
+    ln = p.shape[-1]
+    e1 = s3[..., :ln]
+    e2 = s3[..., half : half + ln]
+    nv = n_valid[..., None]
+    # floor the energies at a fraction of each block's average window energy:
     # without it the ratio spikes at silence->signal boundaries (0/0)
-    floor = 0.05 * win * pw.sum() / n_valid.clamp(min=1) + 1e-20
+    floor = 0.05 * win * pw.sum(-1, keepdim=True) / nv.clamp(min=1) + 1e-20
     metric = p.abs() ** 2 / (torch.maximum(e1, floor) * torch.maximum(e2, floor))
     # mask positions whose correlation window reaches past the valid samples
-    idx = torch.arange(metric.shape[0], device=r.device)
-    metric = torch.where(idx <= n_valid - (win + half), metric, -1.0)
+    idx = torch.arange(metric.shape[-1], device=r.device)
+    metric = torch.where(idx <= nv - (win + half), metric, -1.0)
     return metric, p, half
 
 
@@ -332,31 +337,46 @@ def _refine_len(m: int, cp: int | None, tlen: int) -> int:
     return 2 * ((cp if cp is not None else m) + m) + tlen
 
 
+def _gather_rows(rr, ri, offsets, wlen: int, out=None):
+    """Windows of length ``wlen`` at ``offsets`` that lie inside their own
+    row: one :func:`extract_windows` launch.  Planes (N,) take offsets (K,);
+    a (B, N) batch of streams takes row-local offsets (B, K), laid end to end
+    over the flattened planes, and gives (B, K, wlen) windows (``out`` then
+    holds B * K rows)."""
+    if rr.dim() == 1:
+        return extract_windows(rr, ri, offsets, wlen, out=out)
+    b, n = rr.shape
+    flat = offsets + torch.arange(b, device=rr.device)[:, None] * n
+    wr, wi = extract_windows(rr.reshape(-1), ri.reshape(-1), flat.reshape(-1), wlen, out=out)
+    return wr.view(b, -1, wlen), wi.view(b, -1, wlen)
+
+
 def _refine(rr, ri, metric, p, half, coarses, tmpl, m, cp=None, ws=None):
     """CFO-corrected matched-filter timing refinement, vectorized over K
-    coarse candidates.  The S&C metric plateaus (|P| and R shrink together
+    coarse candidates, and over the rows of a (B, N) batch of streams
+    (``coarses`` (B, K)).  The S&C metric plateaus (|P| and R shrink together
     during partial overlap), so snap to the known 2x-S0 template.  The
-    candidates' windows come from one :func:`extract_windows` call, into the
-    first K rows of ``ws`` (a caller-owned pair of :func:`_refine_len` columns)
-    when given."""
+    candidates' windows, each clipped into its own row, come from one
+    :func:`extract_windows` call, into the first K (B * K) rows of ``ws`` (a
+    caller-owned pair of :func:`_refine_len` columns) when given."""
     tlen = tmpl.shape[0]
     # the box-smoothed S&C plateau maximum sits within ~cp + half of the
     # true start, so cp + m covers it with >= m/2 slack for any cp
     span = (cp if cp is not None else m) + m
     wlen = _refine_len(m, cp, tlen)
-    cfo0 = torch.angle(p[coarses.clamp(0, p.shape[0] - 1)]) / half  # (K,)
+    cfo0 = torch.angle(p.gather(-1, coarses.clamp(0, p.shape[-1] - 1))) / half  # (..., K)
     n = torch.arange(tlen, dtype=torch.float32, device=rr.device)
-    rot = _cis(-cfo0[:, None] * n)
-    base = (coarses - span).clamp(0, max(rr.shape[0] - wlen, 0))
-    wr, wi = extract_windows(rr, ri, base, wlen, out=_rows(ws, base.shape[0]))  # (K, wlen) each
-    wins = torch.complex(wr, wi).unfold(1, tlen, 1)  # (K, S, tlen)
-    q = rot * torch.conj(tmpl)[None, :]
-    xc = (wins * q[:, None, :]).sum(dim=-1).abs() ** 2
+    rot = _cis(-cfo0[..., None] * n)
+    base = (coarses - span).clamp(0, max(rr.shape[-1] - wlen, 0))
+    wr, wi = _gather_rows(rr, ri, base, wlen, out=_rows(ws, base.numel()))  # (..., K, wlen) each
+    wins = torch.complex(wr, wi).unfold(-1, tlen, 1)  # (..., K, S, tlen)
+    q = rot * torch.conj(tmpl)
+    xc = (wins * q[..., None, :]).sum(dim=-1).abs() ** 2
     we = (wins.abs() ** 2).sum(dim=-1)
     fine = torch.argmax(xc / we.clamp(min=1e-12), dim=-1)
     best = base + fine
-    cfo = torch.angle(p[best.clamp(0, p.shape[0] - 1)]) / half
-    peak = metric[best.clamp(0, metric.shape[0] - 1)]
+    cfo = torch.angle(p.gather(-1, best.clamp(0, p.shape[-1] - 1))) / half
+    peak = metric.gather(-1, best.clamp(0, metric.shape[-1] - 1))
     return best, peak, cfo
 
 
@@ -375,24 +395,26 @@ def _topk_core(rr, ri, metric, p, half, tmpl, m, k: int, cp=None, ws=None):
     (window 2m, which suppresses one frame's metric plateau — distinct
     frames are >= prefix_len >> 2m apart) -> non-max suppression against
     neighbor windows -> top K -> one vectorized refinement pass.
-    Returns (bests (K',), peaks (K',), cfos (K',)) with K' = min(K, #windows).
+    Returns (bests (..., K'), peaks, cfos) with K' = min(K, #windows), per
+    row of a (B, N) batch of streams.
 
     The top K is a stable descending sort, so equal values keep index
     order, as ``lax.top_k`` orders them.  ``ws``: the refinement's window
     buffers (:func:`_refine`)."""
     w = 2 * m
-    nwin = -(-metric.shape[0] // w)
-    mm = torch.nn.functional.pad(metric, (0, nwin * w - metric.shape[0]), value=-1.0)
-    wmax, warg = mm.reshape(nwin, w).max(dim=1)
+    lead = metric.shape[:-1]
+    nwin = -(-metric.shape[-1] // w)
+    mm = torch.nn.functional.pad(metric, (0, nwin * w - metric.shape[-1]), value=-1.0)
+    wmax, warg = mm.reshape(*lead, nwin, w).max(dim=-1)
     warg = warg + torch.arange(nwin, device=metric.device) * w
-    inf = torch.full((1,), -float("inf"), device=metric.device)
-    left = torch.cat([inf, wmax[:-1]])
-    right = torch.cat([wmax[1:], inf])
+    inf = torch.full((*lead, 1), -float("inf"), device=metric.device)
+    left = torch.cat([inf, wmax[..., :-1]], dim=-1)
+    right = torch.cat([wmax[..., 1:], inf], dim=-1)
     cand = (wmax >= left) & (wmax > right)  # ties resolve to the right window
     vals = torch.where(cand, wmax, -1.0)
     keff = min(k, nwin)
-    topi = torch.sort(vals, descending=True, stable=True).indices[:keff]
-    coarses = warg[topi]
+    topi = torch.sort(vals, descending=True, stable=True).indices[..., :keff]
+    coarses = warg.gather(-1, topi)
     return _refine(rr, ri, metric, p, half, coarses, tmpl, m, cp=cp, ws=ws)
 
 
@@ -582,9 +604,9 @@ def _prefix_len(layout: OFDMFrameGen) -> int:
 
 
 def _scan_candidates(layout: OFDMFrameGen, rr, ri, n_valid, *, k: int, ws=None):
-    """The block scan's detection: top-K S&C candidates, refined.  Returns
-    (bests, peaks, cfos, n_valid as a 0-d tensor); ``ws``: the refinement's
-    window buffers (:func:`_refine`)."""
+    """The block scan's detection: top-K S&C candidates, refined, per row of a
+    (B, N) batch of streams too.  Returns (bests, peaks, cfos, n_valid as a
+    tensor); ``ws``: the refinement's window buffers (:func:`_refine`)."""
     m = layout.cfg.num_subcarriers
     nv = _n_valid(n_valid, rr.device)
     metric, p, half = _sc_metric(torch.complex(rr, ri), nv, m)
@@ -595,13 +617,17 @@ def _scan_candidates(layout: OFDMFrameGen, rr, ri, n_valid, *, k: int, ws=None):
 
 
 def _scan_headers(layout: OFDMFrameGen, pre_r, pre_i, bests, cfos, nv):
-    """The block scan's header decode from the (K, prefix) header windows at
-    ``bests``: (headers (K,8), phy (K,6), hdr_ok (K,)), hdr_ok False where the
-    header region overruns the valid samples."""
-    hdr_bits, _rssi = _header_demod_graph(layout, pre_r, pre_i, cfos)
+    """The block scan's header decode from the header windows at ``bests``
+    (K,), or (B, K) for a batch of streams (windows (B * K, prefix) or
+    (B, K, prefix)): (headers (..., K, 8), phy (..., K, 6), hdr_ok (..., K)),
+    hdr_ok False where the header region overruns the valid samples."""
+    lead = bests.shape
+    plen = pre_r.shape[-1]
+    hdr_bits, _rssi = _header_demod_graph(layout, pre_r.reshape(-1, plen), pre_i.reshape(-1, plen),
+                                          cfos.reshape(-1))
     headers, phy, hdr_ok = _decode_header_graph(hdr_bits)
-    hdr_ok = hdr_ok & (bests + _prefix_len(layout) <= nv)
-    return headers, phy, hdr_ok
+    hdr_ok = hdr_ok.reshape(lead) & (bests + _prefix_len(layout) <= nv[..., None])
+    return headers.reshape(*lead, -1), phy.reshape(*lead, -1), hdr_ok
 
 
 def _scan_block_graph(layout: OFDMFrameGen, rr, ri, n_valid, *, k: int):

@@ -25,7 +25,10 @@ Two ways to drive it:
   speculative decode, residual carry).  Nothing in a step waits for the
   device, so steps queue on the card one behind the other; their packed
   records go to pinned host memory in groups, by copies that run beside the
-  next steps, and are read when a step falls ``max_lag`` behind.
+  next steps, and are read when a step falls ``max_lag`` behind.  The step
+  is a :class:`StreamBank`'s: :meth:`StreamBank.feed` takes a block of each
+  of B streams and runs one step for all of them, with the same launches
+  whatever B is; :meth:`StreamReceiver.feed_device` is a bank of one stream.
 
 Window gathers go through :func:`..ops.extract.extract_windows` and
 :func:`..ops.extract.extract_window_sets` and the candidate walk through
@@ -72,7 +75,7 @@ from cognitive_radio_network_tpu_torch.phy.framesync import (
 from cognitive_radio_network_tpu_torch.signal.iq import split_iq
 from cognitive_radio_network_tpu_torch.utils import profiling
 
-__all__ = ["StreamReceiver"]
+__all__ = ["StreamBank", "StreamReceiver"]
 
 
 @functools.lru_cache(maxsize=512)
@@ -304,10 +307,11 @@ def _stream_step_graph(
     ws: dict | None = None,
 ):
     """One adaptive stream step on the device, with nothing fetched: scan +
-    greedy candidate resolution + speculative decode + residual carry.
+    greedy candidate resolution + speculative decode + residual carry, for
+    one stream or for a batch of B streams at once.
 
     The host semantics of :meth:`StreamReceiver.process` are reproduced
-    exactly:
+    exactly, for each stream on its own:
 
     * candidates ordered by position (stable), accepted greedily against the
       threshold, the header CRC, the header's validity, and overlap with the
@@ -320,7 +324,7 @@ def _stream_step_graph(
       keep point) is cut again on the device: the state never crosses to the
       host, so successive steps queue with no copy in between.
 
-    The buffer is ``cat(residual, block)`` of static length ``r_cap +
+    A stream's buffer is ``cat(residual, block)`` of static length ``r_cap +
     len(block)``, scanned whole (``n_valid = n``), as in the reference: the
     S&C metric's floor, the top-K order and so the offsets depend on it.
 
@@ -334,67 +338,92 @@ def _stream_step_graph(
     length; with ``ws`` the step's windows (those and the refinement's) are
     the caller's, rewritten by each step (:func:`_window_buffers`).
 
-    ``res_len`` is a 0-d int64 tensor; ``thr`` a Python float.  Returns
-    (new_res_r, new_res_i, new_res_len, buf_r, buf_i, packed) where ``packed``
-    is ONE int32 array (k+1, 10 + 2*S + ceil(W/4)): in columns 0..9+2S, rows
-    0..k-1 are [best, cfo.bits, accept, match_idx, phy[6], then per spec
-    (evm, rssi).bits] and row k is the meta row [res_len_in, keep_from,
-    consumed_end, incomplete, tiny, 0...]; the remaining columns are each
-    candidate's MATCHED-spec decode bytes (uint8 (k, W), W = max_s(16 + P_s),
-    header, phy and ok flags included), four bytes to a word, little-endian.
+    A batch lays its B buffers end to end for the gathers, so a step launches
+    the same kernels whatever B is: two extract launches, one resolve launch
+    (a walk per stream) and one decode per spec over all B * K candidates.
+    The refinement windows are clipped into their own stream's buffer before
+    the gather (:func:`_gather_rows`).  A header or frame window may run on
+    into the next stream's buffer where the same window of a single stream
+    would have been clipped back, but only for a candidate whose window
+    overruns its own buffer, and no such window is ever read: a header
+    region that overruns fails ``hdr_ok`` and stops the walk, and a frame
+    accepted under spec ``s`` has the spec's length and lies whole inside its
+    buffer (the walk takes no frame that overruns), so only the matched
+    spec's bytes of accepted frames, which lie inside, are read.
+
+    Shapes: one stream's residual planes (r_cap,), ``res_len`` 0-d int64 and
+    block planes (n,); or a batch's (B, r_cap), (B,) and (B, n).  ``thr`` a
+    Python float.  Returns (new_res_r, new_res_i, new_res_len, buf_r, buf_i,
+    packed) with the batch's leading dimension where the inputs had it;
+    ``packed`` is ONE int32 array (k+1, 10 + 2*S + ceil(W/4)) a stream: in
+    columns 0..9+2S, rows 0..k-1 are [best, cfo.bits, accept, match_idx,
+    phy[6], then per spec (evm, rssi).bits] and row k is the meta row
+    [res_len_in, keep_from, consumed_end, incomplete, tiny, 0...]; the
+    remaining columns are each candidate's MATCHED-spec decode bytes (uint8
+    (k, W), W = max_s(16 + P_s), header, phy and ok flags included), four
+    bytes to a word, little-endian.
     """
-    r_cap = res_r.shape[0]
+    if res_r.dim() == 1:  # one stream: a batch of one
+        out = _stream_step_graph(layout, spec_gens, max_residual, res_r[None], res_i[None],
+                                 res_len.reshape(1), blk_r[None], blk_i[None], thr, k=k, ws=ws)
+        return tuple(t[0] for t in out)
+    b, r_cap = res_r.shape
     dev = res_r.device
-    buf_r = torch.cat([res_r, blk_r])
-    buf_i = torch.cat([res_i, blk_i])
-    n = buf_r.shape[0]  # static: r_cap + block_len
+    buf_r = torch.cat([res_r, blk_r], dim=1)
+    buf_i = torch.cat([res_i, blk_i], dim=1)
+    n = buf_r.shape[1]  # static: r_cap + block_len
     lead = r_cap - res_len
-    n_live = res_len + blk_r.shape[0]
+    n_live = res_len + blk_r.shape[1]
     prefix = _prefix_len(layout)
 
     wlens = (prefix, *(sg.frame_len for sg in spec_gens))
     tlen = layout.device_constants(dev)["tmpl"].shape[0]
     m, cp = layout.cfg.num_subcarriers, layout.cfg.cp_len
-    bufs = _window_buffers(ws, buf_r, k, (_refine_len(m, cp, tlen), *wlens))
+    bufs = _window_buffers(ws, buf_r, b * k, (_refine_len(m, cp, tlen), *wlens))
     bests, peaks, cfos, nv = _scan_candidates(
         layout, buf_r, buf_i, n, k=k, ws=None if bufs is None else bufs[0])
-    kk = bests.shape[0]
+    kk = bests.shape[1]
+    at = bests + torch.arange(b, device=dev)[:, None] * n  # the buffers laid end to end
     wins = extract_window_sets(
-        buf_r, buf_i, bests, wlens, out=None if bufs is None else [_rows(b, kk) for b in bufs[1:]])
+        buf_r.reshape(-1), buf_i.reshape(-1), at.reshape(-1), wlens,
+        out=None if bufs is None else [_rows(x, b * kk) for x in bufs[1:]])
     _headers, phy, hdr_ok = _scan_headers(layout, *wins[0], bests, cfos, nv)
+    phy = phy.reshape(b * kk, 6)
     flen, phy_valid = _phy_geometry(layout, phy)
 
-    # greedy resolution in offset order (the host loop of _resolve_candidates)
-    order = torch.argsort(bests, stable=True)
-    keep0 = lead.clamp(min=n - prefix).reshape(1)
+    # greedy resolution in offset order, each stream on its own (the host
+    # loop of _resolve_candidates)
+    order = torch.argsort(bests, dim=1, stable=True)
+    keep0 = lead.clamp(min=n - prefix)
+    good = hdr_ok & phy_valid.reshape(b, kk)
     acc_sorted, walk = resolve_candidates(
-        bests[order], peaks[order].float(), (hdr_ok & phy_valid)[order], flen[order], keep0,
-        thr, n, prefix,
+        bests.gather(1, order), peaks.float().gather(1, order), good.gather(1, order),
+        flen.reshape(b, kk).gather(1, order), keep0, thr, n, prefix,
     )
-    accept = torch.empty_like(acc_sorted)
-    accept[order] = acc_sorted
-    consumed_end, keep_from, incomplete = walk[0], walk[1], walk[2]
+    accept = torch.empty_like(acc_sorted).scatter_(1, order, acc_sorted)
+    consumed_end, keep_from, incomplete = walk.unbind(1)
 
     # the tiny-block early-out of the host path: too short to scan -> accept
     # nothing, keep the whole live region, leave pending unchanged
     tiny = n_live < prefix + 4 * layout.cfg.num_subcarriers
-    accept = accept & ~tiny
+    accept = accept & ~tiny[:, None]
 
     # residual carry (right-aligned, zeros before the keep point)
     keep2 = torch.maximum(keep_from, consumed_end).clamp(min=n - max_residual)
     keep2 = torch.where(tiny, lead, keep2)
     new_res_len = n - keep2
-    live = torch.arange(r_cap, device=dev) >= r_cap - new_res_len
-    new_res_r = torch.where(live, buf_r[n - r_cap :], 0.0)
-    new_res_i = torch.where(live, buf_i[n - r_cap :], 0.0)
+    live = torch.arange(r_cap, device=dev) >= (r_cap - new_res_len)[:, None]
+    new_res_r = torch.where(live, buf_r[:, n - r_cap :], 0.0)
+    new_res_i = torch.where(live, buf_i[:, n - r_cap :], 0.0)
 
-    # speculative decode under each spec config
-    match_idx = torch.full((bests.shape[0],), -1, dtype=torch.int32, device=dev)
+    # speculative decode under each spec config, of all B * K candidates
+    cf = cfos.reshape(-1)
+    match_idx = torch.full((b * kk,), -1, dtype=torch.int32, device=dev)
     dec_bytes, dec_f32 = [], []
     for s, sg in enumerate(spec_gens):
         m_s = (phy == sg.device_constants(dev)["phy"]).all(dim=1)
         match_idx = torch.where((match_idx < 0) & m_s, s, match_idx)
-        db, df = _pack_rx(_rx_graph(sg, *wins[1 + s], cfos))
+        db, df = _pack_rx(_rx_graph(sg, *wins[1 + s], cf))
         dec_bytes.append(db)
         dec_f32.append(df)
 
@@ -403,16 +432,16 @@ def _stream_step_graph(
     # length, possibly longer than the real frame) can clip at the buffer's
     # end and garble its row, and the fallback needs the exact header.
     cols = [
-        bests.to(torch.int32)[:, None],
-        _bits_i32(cfos)[:, None],
-        accept.to(torch.int32)[:, None],
+        bests.reshape(-1, 1).to(torch.int32),
+        _bits_i32(cf)[:, None],
+        accept.reshape(-1, 1).to(torch.int32),
         match_idx[:, None],
         phy.to(torch.int32),
         *(_bits_i32(df[:, :2]) for df in dec_f32),
     ]
-    rec = torch.cat(cols, dim=1)  # (k, 10 + 2*S)
-    meta = torch.zeros(rec.shape[1], dtype=torch.int32, device=dev)
-    meta[:5] = torch.stack([res_len, keep2, consumed_end, incomplete, tiny.to(torch.int64)])
+    rec = torch.cat(cols, dim=1).reshape(b, kk, -1)  # (B, k, 10 + 2*S)
+    meta = torch.zeros((b, 1, rec.shape[2]), dtype=torch.int32, device=dev)
+    meta[:, 0, :5] = torch.stack([res_len, keep2, consumed_end, incomplete, tiny.to(torch.int64)], dim=1)
     # per candidate, keep ONLY the decode bytes of its MATCHED spec; unmatched
     # candidates default to spec 0's bytes, whose header columns are exact
     wp = -(-max(db.shape[1] for db in dec_bytes) // 4) * 4
@@ -420,9 +449,9 @@ def _stream_step_graph(
     for s, db in enumerate(dec_bytes[1:], start=1):
         dbp = torch.nn.functional.pad(db, (0, wp - db.shape[1]))
         dec = torch.where(match_idx[:, None] == s, dbp, dec)
-    d32 = dec.contiguous().view(torch.int32)  # (k, wp / 4)
+    d32 = dec.contiguous().view(torch.int32).reshape(b, kk, -1)  # (B, k, wp / 4)
     packed = torch.cat(
-        [torch.cat([rec, meta[None]]), torch.nn.functional.pad(d32, (0, 0, 0, 1))], dim=1
+        [torch.cat([rec, meta], dim=1), torch.nn.functional.pad(d32, (0, 0, 0, 1))], dim=2
     )
     return new_res_r, new_res_i, new_res_len, buf_r, buf_i, packed
 
@@ -640,29 +669,38 @@ class StreamReceiver:
         # the host API's residual: (2, r) float32 planes on the host
         self._residual = np.zeros((2, 0), np.float32)
         self._residual_offset = 0  # absolute sample index of the residual's first sample
-        # state of the device API: residual planes and length live on the
-        # device and chain from step to step
-        self._res_r_d = None
-        self._res_i_d = None
-        self._res_len_d = None
-        # speculative-decode config history: the <= 2 most recently seen
-        # payload configs (keys as in _payload_gen); the first guess is the
-        # constructor's config at the reference's 256-byte packet size
-        # (include/crts.hpp:192-194)
-        self._spec_lru: list[tuple] = [
-            (256, cfg.mod_scheme, cfg.fec0, cfg.fec1, cfg.crc_scheme)
-        ]
-        self._pending_steps: list[tuple] = []  # steps dispatched and not yet read
-        # the device step's windows (refinement, header and frame windows),
-        # kept from step to step: steps run in order on one stream
-        self._step_windows: dict = {}
-        # consecutive steps' packed records are stacked on the device and
-        # copied to the host in ONE transfer per group of this many steps
-        self.fetch_group = 8
-        self._open_group: dict | None = None
         # True while the residual holds a detected-but-incomplete frame (its
         # tail is still arriving): a squelch must not carry/skip past it
         self.pending_frame = False
+        # the device API is a bank of this one stream (a StreamBank's streams
+        # are the bank's instead)
+        self._bank = StreamBank._of([self])
+
+    # the device API's state lives in the receiver's bank
+    @property
+    def fetch_group(self) -> int:
+        """Steps whose records are copied to the host in one transfer."""
+        return self._bank.fetch_group
+
+    @fetch_group.setter
+    def fetch_group(self, steps: int) -> None:
+        self._bank.fetch_group = steps
+
+    @property
+    def _spec_lru(self) -> list[tuple]:
+        return self._bank._spec_lru
+
+    @_spec_lru.setter
+    def _spec_lru(self, keys: list[tuple]) -> None:
+        self._bank._spec_lru = keys
+
+    @property
+    def _res_r_d(self):
+        return self._bank._res_r
+
+    @property
+    def _res_len_d(self):
+        return self._bank._res_len
 
     def skip(self, n: int) -> None:
         """Advance the stream cursor past ``n`` squelched samples without
@@ -776,21 +814,6 @@ class StreamReceiver:
         :meth:`flush`, which keep several steps in flight."""
         return self.feed_device(blk_r, blk_i, threshold, max_lag=0)
 
-    def _device_planes(self, blk_r, blk_i) -> tuple[torch.Tensor, torch.Tensor]:
-        """The block's planes on the receiver's device: host planes are moved
-        there, planes that lie elsewhere are refused (the fallback decode's
-        synchronizers and the residual are the receiver's device's)."""
-        want = self.device
-        planes = []
-        for plane in split_iq((blk_r, blk_i)):
-            got = plane.device
-            if got.type == "cpu":
-                plane = plane.to(want)
-            elif got.type != want.type or (want.index is not None and got.index != want.index):
-                raise ValueError(f"receiver on {want} was given planes on {got}")
-            planes.append(plane)
-        return planes[0], planes[1]
-
     def feed_device(self, blk_r, blk_i, threshold: float = 0.2, max_lag: int = 3):
         """Pipelined device-resident streaming: dispatch the stream step for
         this block and return the frames of any step whose results are due
@@ -798,92 +821,26 @@ class StreamReceiver:
         on the device; only reading a due step does.  Call :meth:`flush` to
         drain the tail; ``pending_frame`` is only current after a flush (or
         with ``max_lag=0``).  Planes that arrive on the host are moved to the
-        receiver's device first, a copy that does wait."""
-        blk_r, blk_i = self._device_planes(blk_r, blk_i)
-        dev = blk_r.device
-        r_cap = _bucket_len(self.max_residual)
-        if self._res_r_d is None or self._res_r_d.device != dev:
-            self._res_r_d = torch.zeros(r_cap, dtype=torch.float32, device=dev)
-            self._res_i_d = torch.zeros(r_cap, dtype=torch.float32, device=dev)
-            self._res_len_d = torch.zeros((), dtype=torch.int64, device=dev)
-        n = r_cap + int(blk_r.shape[0])
-        keff = min(self.max_frames_per_block, max(4, -(-n // self.prefix_len)))
-        spec = tuple(sorted(self._spec_lru[-2:]))
-        spec_gens = tuple(_payload_gen(self.cfg, key) for key in spec)
-        (
-            self._res_r_d,
-            self._res_i_d,
-            self._res_len_d,
-            buf_r,
-            buf_i,
-            packed,
-        ) = _stream_step_graph(
-            self.layout, spec_gens, self.max_residual,
-            self._res_r_d, self._res_i_d, self._res_len_d, blk_r, blk_i, float(threshold), k=keff,
-            ws=self._step_windows,
-        )
-        # group the step's packed record: one copy to the host per
-        # fetch_group steps, running beside the next steps
-        g = self._open_group
-        if g is not None and g["arrs"] and g["arrs"][0].shape != packed.shape:
-            self._submit_group()  # shape changed (new k/spec): close group
-            g = None
-        if g is None:
-            g = self._open_group = {"arrs": [], "host": None, "done": None}
-        idx = len(g["arrs"])
-        g["arrs"].append(packed)
-        self._pending_steps.append((g, idx, spec, buf_r, buf_i, r_cap))
-        if len(g["arrs"]) >= self.fetch_group:
-            self._submit_group()
-        if len(self._pending_steps) > max_lag:
-            return self._drain(len(self._pending_steps) - max_lag)
-        return []
-
-    def _submit_group(self) -> None:
-        """Start the open group's copy to the host without waiting for it: on
-        a card into pinned memory, with an event behind it that
-        :meth:`_drain` waits on; on the CPU the stacked records are the
-        host's already."""
-        g = self._open_group
-        if g is None or g["host"] is not None:
-            return
-        stacked = torch.stack(g["arrs"])
-        if stacked.device.type == "cuda":
-            host = torch.empty(stacked.shape, dtype=stacked.dtype, pin_memory=True)
-            host.copy_(stacked, non_blocking=True)
-            g["done"] = torch.cuda.Event()
-            g["done"].record()
-            g["host"] = host
-        else:
-            g["host"] = stacked
-        g["arrs"] = []  # release per-step device refs (the stack holds the data)
-        self._open_group = None
+        receiver's device first, a copy that does wait.  The step is a
+        :class:`StreamBank`'s at one stream."""
+        re, im = split_iq((blk_r, blk_i))
+        return self._own_bank().feed(re[None], im[None], threshold, max_lag)[0]
 
     def flush(self):
         """Drain every in-flight :meth:`feed_device` step; returns their
         frames and settles ``pending_frame``."""
-        return self._drain(len(self._pending_steps))
+        return self._own_bank().flush()[0]
 
-    def _drain(self, count: int):
-        """Wait for the oldest ``count`` in-flight steps' records (their copies
-        started when their groups closed) and materialize their frames in
-        stream order."""
-        entries = self._pending_steps[:count]
-        del self._pending_steps[:count]
-        frames = []
-        for entry in entries:
-            g = entry[0]
-            if g["host"] is None:  # partial group still open: copy it now
-                self._submit_group()
-            if g["done"] is not None:
-                g["done"].synchronize()
-                g["done"] = None
-            frames += self._fetch_step(entry, g["host"].numpy()[entry[1]])
-        return frames
+    def _own_bank(self) -> StreamBank:
+        if len(self._bank.receivers) != 1:
+            raise RuntimeError("this receiver is a stream of a StreamBank: feed the bank")
+        return self._bank
 
     def _fetch_step(self, entry, packed: np.ndarray):
-        """Materialize one step's frames from its fetched record."""
-        _g, _idx, spec, buf_r, buf_i, r_cap = entry
+        """Materialize this stream's frames of one step from its fetched
+        record (k+1, W): ``entry`` is (spec, buf_r, buf_i, r_cap, row), the
+        step's (B, n) buffer planes and this stream's row of them."""
+        spec, buf_r, buf_i, r_cap, row = entry
         rec_w = 10 + 2 * len(spec)
         rec = packed[:, :rec_w]
         dec = np.ascontiguousarray(packed[:-1, rec_w:]).view(np.uint8)
@@ -923,17 +880,185 @@ class StreamReceiver:
             if s >= 0:
                 gen, out = spec_outs[s]
                 frames.append(_frame(gen, out, spec_pos[s][int(i)], base2 + off))
-                self._touch_spec(spec[s])
+                self._bank._touch_spec(spec[s])
             else:
                 # the scan's exact PHY header (rec cols 4..10); accept implies
                 # a header that parses (phy_valid in the step)
                 parsed = unpack_phy_header(rec[i, 4:10].astype(np.uint8))
                 fallback.setdefault(parsed, []).append((off, int(i)))
+        profiling.count("rx.step_accepted", len(acc_idx))
         if fallback:
-            frames += self._decode_groups(buf_r, buf_i, fallback, cfos, base2)
+            profiling.count("rx.step_spec_misses", sum(map(len, fallback.values())))
+            frames += self._decode_groups(buf_r[row], buf_i[row], fallback, cfos, base2)
             for key in fallback:
-                self._touch_spec(key)
+                self._bank._touch_spec(key)
             frames.sort(key=lambda f: f["offset"])
+        return frames
+
+
+class StreamBank:
+    """B adaptive streams received together on the device: one
+    :func:`_stream_step_graph` a block of every stream, so a step's launches
+    do not grow with the number of streams.
+
+    :meth:`feed` takes one block of each stream as (B, n) float32 planes (on
+    the bank's device, or moved there) and dispatches one step for all of
+    them, waiting for nothing on the device; it returns, per stream, the
+    frames of the steps that are due (more than ``max_lag`` behind).
+    :meth:`flush` drains every step still in flight.  Each stream keeps its
+    own residual, offsets and ``pending_frame`` (``receivers[j]`` is stream
+    j's :class:`StreamReceiver`, whose fallback decode it runs), and gets the
+    frames B receivers fed the same blocks by
+    :meth:`StreamReceiver.feed_device` would give.  The bank speculates on the
+    payload configurations its streams' frames had last, at most 2, in one
+    history for all streams, read in stream order; a frame of any other
+    configuration is decoded by its stream's grouped host path.
+    :meth:`StreamReceiver.feed_device` is a bank of one stream.
+
+    Records of consecutive steps are stacked on the device and copied to
+    pinned host memory in one transfer a group of ``fetch_group`` steps,
+    which runs beside the next steps."""
+
+    def __init__(self, cfg: OFDMFrameConfig, streams: int, max_frames_per_block: int = 16,
+                 device: torch.device | str = "cuda"):
+        if streams < 1:
+            raise ValueError(f"a bank holds at least one stream, got {streams}")
+        self._setup([StreamReceiver(cfg, max_frames_per_block, device) for _ in range(streams)])
+
+    @classmethod
+    def _of(cls, receivers: list) -> StreamBank:
+        bank = cls.__new__(cls)
+        bank._setup(receivers)
+        return bank
+
+    def _setup(self, receivers: list) -> None:
+        first = receivers[0]
+        self.receivers = receivers
+        for rx in receivers:
+            rx._bank = self
+        self.cfg, self.device, self.layout = first.cfg, first.device, first.layout
+        self.max_frames_per_block = first.max_frames_per_block
+        # residual planes (B, r_cap) and lengths (B,) live on the device and
+        # chain from step to step
+        self._res_r = self._res_i = self._res_len = None
+        # speculative-decode config history: the <= 2 most recently seen
+        # payload configs (keys as in _payload_gen); the first guess is the
+        # constructor's config at the reference's 256-byte packet size
+        # (include/crts.hpp:192-194)
+        cfg = self.cfg
+        self._spec_lru: list[tuple] = [(256, cfg.mod_scheme, cfg.fec0, cfg.fec1, cfg.crc_scheme)]
+        self._pending_steps: list[tuple] = []  # steps dispatched and not yet read
+        # the step's windows (refinement, header and frame windows), kept
+        # from step to step: steps run in order on one stream
+        self._step_windows: dict = {}
+        self.fetch_group = 8
+        self._open_group: dict | None = None
+
+    @property
+    def pending_frame(self) -> list[bool]:
+        """Per stream, :attr:`StreamReceiver.pending_frame` (current after a flush)."""
+        return [rx.pending_frame for rx in self.receivers]
+
+    def _device_planes(self, blk_r, blk_i) -> tuple[torch.Tensor, torch.Tensor]:
+        """The blocks' planes on the bank's device: host planes are moved
+        there, planes that lie elsewhere are refused (the fallback decode's
+        synchronizers and the residual are the bank's device's)."""
+        want = self.device
+        planes = []
+        for plane in split_iq((blk_r, blk_i)):
+            got = plane.device
+            if got.type == "cpu":
+                plane = plane.to(want)
+            elif got.type != want.type or (want.index is not None and got.index != want.index):
+                raise ValueError(f"receiver on {want} was given planes on {got}")
+            planes.append(plane)
+        b = len(self.receivers)
+        if planes[0].dim() != 2 or planes[0].shape[0] != b or planes[0].shape != planes[1].shape:
+            raise ValueError(f"a bank of {b} streams takes ({b}, n) planes, got "
+                             f"{tuple(planes[0].shape)} and {tuple(planes[1].shape)}")
+        return planes[0], planes[1]
+
+    def feed(self, blk_r, blk_i, threshold: float = 0.2, max_lag: int = 3) -> list[list[dict]]:
+        """Dispatch one step over a block of every stream ((B, n) planes) and
+        return, per stream, the frames of the steps that are due."""
+        with profiling.span("rx.step"):
+            blk_r, blk_i = self._device_planes(blk_r, blk_i)
+            b, dev = blk_r.shape[0], blk_r.device
+            r_cap = _bucket_len(_max_residual(self.layout))
+            if self._res_r is None or self._res_r.device != dev:
+                self._res_r = torch.zeros((b, r_cap), dtype=torch.float32, device=dev)
+                self._res_i = torch.zeros((b, r_cap), dtype=torch.float32, device=dev)
+                self._res_len = torch.zeros(b, dtype=torch.int64, device=dev)
+            n = r_cap + int(blk_r.shape[1])
+            keff = min(self.max_frames_per_block, max(4, -(-n // _prefix_len(self.layout))))
+            spec = tuple(sorted(self._spec_lru[-2:]))
+            spec_gens = tuple(_payload_gen(self.cfg, key) for key in spec)
+            self._res_r, self._res_i, self._res_len, buf_r, buf_i, packed = _stream_step_graph(
+                self.layout, spec_gens, _max_residual(self.layout),
+                self._res_r, self._res_i, self._res_len, blk_r, blk_i, float(threshold), k=keff,
+                ws=self._step_windows,
+            )
+            profiling.count("rx.step_streams", b)
+            profiling.count("rx.step_candidates", b * (packed.shape[1] - 1))
+            # group the step's packed record: one copy to the host per
+            # fetch_group steps, running beside the next steps
+            g = self._open_group
+            if g is not None and g["arrs"] and g["arrs"][0].shape != packed.shape:
+                self._submit_group()  # shape changed (new k/spec): close group
+                g = None
+            if g is None:
+                g = self._open_group = {"arrs": [], "host": None, "done": None}
+            idx = len(g["arrs"])
+            g["arrs"].append(packed)
+            self._pending_steps.append((g, idx, spec, buf_r, buf_i, r_cap))
+            if len(g["arrs"]) >= self.fetch_group:
+                self._submit_group()
+        if len(self._pending_steps) > max_lag:
+            return self._drain(len(self._pending_steps) - max_lag)
+        return [[] for _ in self.receivers]
+
+    def _submit_group(self) -> None:
+        """Start the open group's copy to the host without waiting for it: on
+        a card into pinned memory, with an event behind it that
+        :meth:`_drain` waits on; on the CPU the stacked records are the
+        host's already."""
+        g = self._open_group
+        if g is None or g["host"] is not None:
+            return
+        stacked = torch.stack(g["arrs"])
+        if stacked.device.type == "cuda":
+            host = torch.empty(stacked.shape, dtype=stacked.dtype, pin_memory=True)
+            host.copy_(stacked, non_blocking=True)
+            g["done"] = torch.cuda.Event()
+            g["done"].record()
+            g["host"] = host
+        else:
+            g["host"] = stacked
+        g["arrs"] = []  # release per-step device refs (the stack holds the data)
+        self._open_group = None
+
+    def flush(self) -> list[list[dict]]:
+        """Drain every in-flight step; returns each stream's frames and
+        settles ``pending_frame``."""
+        return self._drain(len(self._pending_steps))
+
+    def _drain(self, count: int) -> list[list[dict]]:
+        """Wait for the oldest ``count`` in-flight steps' records (their copies
+        started when their groups closed) and materialize each stream's
+        frames in stream order."""
+        entries = self._pending_steps[:count]
+        del self._pending_steps[:count]
+        frames = [[] for _ in self.receivers]
+        for g, idx, spec, buf_r, buf_i, r_cap in entries:
+            with profiling.span("rx.step_fetch"):
+                if g["host"] is None:  # partial group still open: copy it now
+                    self._submit_group()
+                if g["done"] is not None:
+                    g["done"].synchronize()
+                    g["done"] = None
+                packed = g["host"].numpy()[idx]
+                for j, rx in enumerate(self.receivers):
+                    frames[j] += rx._fetch_step((spec, buf_r, buf_i, r_cap, j), packed[j])
         return frames
 
     def _touch_spec(self, key: tuple) -> None:
